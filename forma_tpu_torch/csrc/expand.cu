@@ -5,8 +5,8 @@
 // over 1024-vline windows.  Here each thread owns one virtual line v:
 //
 //   li   = first line whose inclusive vline end exceeds v (upper-bound
-//          binary search over vline_ends; dead lines repeat the previous
-//          end, so they are skipped for free),
+//          binary search over vline_ends, `owning_line` in vlines.cuh;
+//          dead lines repeat the previous end, so they are skipped),
 //   out[c, v] = params[li, c] for the 16 columns, copied as raw 32-bit
 //          words (no float instruction touches them, so every bit pattern,
 //          inf and NaN included, survives),
@@ -23,6 +23,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "vlines.cuh"
+
 namespace {
 
 constexpr int kParams = 16;
@@ -34,13 +36,7 @@ __global__ void expand_kernel(const uint32_t* __restrict__ params,
                               int32_t* __restrict__ j_out) {
   const int64_t v = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (v >= v_cap) return;
-  // Upper bound: smallest i with vline_ends[i] > v, or n_lines.
-  int64_t lo = 0, hi = n_lines;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (vline_ends[mid] > v) hi = mid; else lo = mid + 1;
-  }
-  const int64_t li = lo;
+  const int64_t li = owning_line(vline_ends, n_lines, v);
   const int64_t start = li > 0 ? vline_ends[li - 1] : 0;
   j_out[v] = (int32_t)(v - start);
   if (li < n_lines) {

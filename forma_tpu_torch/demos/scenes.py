@@ -1,0 +1,152 @@
+"""Procedural demo/benchmark scenes.
+
+A copy of the parts of `forma_tpu/demos/scenes.py` that the port's smoke
+test and tests use: `circles` and `paris30k`, with the same seeds, so both
+packages build the same scenes.
+
+`circles` mirrors the reference demo (`demo/src/demos/circles.rs`): N random
+translucent circles built from rational quads.
+
+`paris30k` synthesizes a paris-30k.svg-like city map — the reference's
+headline benchmark asset (`README.md:97-106`) is not distributed, so the
+benchmark scene is generated deterministically: ~30k paths of building
+footprints, road polylines and park blobs with varied fills.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+from ..composition import Composition, Order
+from ..math import Point
+from ..path import Path, PathBuilder
+from ..styling import Color, Fill, Func, Props, Style
+
+_WEIGHT = math.sqrt(2.0) / 2.0
+
+
+def circle_path(x: float, y: float, radius: float) -> Path:
+    return (
+        PathBuilder()
+        .move_to(Point(x + radius, y))
+        .rat_quad_to(Point(x + radius, y - radius), Point(x, y - radius), _WEIGHT)
+        .rat_quad_to(Point(x - radius, y - radius), Point(x - radius, y), _WEIGHT)
+        .rat_quad_to(Point(x - radius, y + radius), Point(x, y + radius), _WEIGHT)
+        .rat_quad_to(Point(x + radius, y + radius), Point(x + radius, y), _WEIGHT)
+        .build()
+    )
+
+
+def circles(composition: Composition, count: int, width: int, height: int, seed=5555):
+    """N random translucent circles (demo/src/demos/circles.rs:22-50)."""
+    rng = np.random.default_rng(seed)
+    for i in range(count):
+        x = float(rng.uniform(0, width))
+        y = float(rng.uniform(0, height))
+        radius = float(rng.uniform(10.0, 50.0))
+        color = Color(*[float(v) for v in rng.uniform(0, 1, 3)], 0.5)
+        composition.get_mut_or_insert_default(Order(i)).insert(
+            circle_path(x, y, radius)
+        ).set_props(Props(func=Func.Draw(Style(fill=Fill.Solid(color)))))
+
+
+def _polygon(xs, ys) -> Path:
+    b = PathBuilder().move_to(Point(float(xs[0]), float(ys[0])))
+    for x, y in zip(xs[1:], ys[1:]):
+        b.line_to(Point(float(x), float(y)))
+    return b.build()
+
+
+def _paris30k_items(width, height, paths=30000, seed=30):
+    """Geometry/color item stream shared by `paris30k` (direct composition)
+    and `paris30k_svg_text` (SVG markup), so the two forms are the SAME
+    scene and a parsed-SVG render can be differenced against the direct one.
+
+    Yields ("poly", xs, ys, Color) and ("blob", (sx, sy), [(cp, end), ...],
+    Color) in draw order.
+    """
+    rng = np.random.default_rng(seed)
+    yield ("poly", [0, 0, width, width], [0, height, height, 0],
+           Color(0.93, 0.91, 0.88, 1.0))
+
+    n_buildings = int(paths * 0.7)
+    n_roads = int(paths * 0.2)
+    n_parks = paths - n_buildings - n_roads - 1
+
+    # Buildings: rotated rectangles.
+    cx = rng.uniform(0, width, n_buildings)
+    cy = rng.uniform(0, height, n_buildings)
+    w = rng.uniform(3, 14, n_buildings)
+    h = rng.uniform(3, 14, n_buildings)
+    ang = rng.uniform(0, math.pi, n_buildings)
+    ca, sa = np.cos(ang), np.sin(ang)
+    shade = rng.uniform(0.55, 0.8, n_buildings)
+    for i in range(n_buildings):
+        dx = [-w[i], -w[i], w[i], w[i]]
+        dy = [-h[i], h[i], h[i], -h[i]]
+        xs = [cx[i] + ca[i] * a - sa[i] * b for a, b in zip(dx, dy)]
+        ys = [cy[i] + sa[i] * a + ca[i] * b for a, b in zip(dx, dy)]
+        yield ("poly", xs, ys,
+               Color(shade[i], shade[i] * 0.95, shade[i] * 0.9, 1.0))
+
+    # Roads: long thin quads.
+    x0 = rng.uniform(-100, width + 100, n_roads)
+    y0 = rng.uniform(-100, height + 100, n_roads)
+    ang = rng.uniform(0, math.pi, n_roads)
+    ln = rng.uniform(100, 600, n_roads)
+    wd = rng.uniform(1.0, 4.0, n_roads)
+    for i in range(n_roads):
+        dx, dy = math.cos(ang[i]), math.sin(ang[i])
+        nx, ny = -dy * wd[i], dx * wd[i]
+        xs = [x0[i] + nx, x0[i] - nx, x0[i] + dx * ln[i] - nx, x0[i] + dx * ln[i] + nx]
+        ys = [y0[i] + ny, y0[i] - ny, y0[i] + dy * ln[i] - ny, y0[i] + dy * ln[i] + ny]
+        yield ("poly", xs, ys, Color(1.0, 1.0, 1.0, 0.9))
+
+    # Parks: rounded blobs from quads.
+    cx = rng.uniform(0, width, n_parks)
+    cy = rng.uniform(0, height, n_parks)
+    r = rng.uniform(8, 40, n_parks)
+    sides = 5
+    for i in range(n_parks):
+        segs = []
+        for s in range(1, sides + 1):
+            a0 = 2 * math.pi * (s - 0.5) / sides
+            a1 = 2 * math.pi * s / sides
+            segs.append(
+                (
+                    (cx[i] + 1.4 * r[i] * math.cos(a0),
+                     cy[i] + 1.4 * r[i] * math.sin(a0)),
+                    (cx[i] + r[i] * math.cos(a1),
+                     cy[i] + r[i] * math.sin(a1)),
+                )
+            )
+        yield ("blob", (cx[i] + r[i], cy[i]), segs, Color(0.55, 0.75, 0.5, 0.85))
+
+
+def paris30k(
+    composition: Composition,
+    width: int = 1920,
+    height: int = 1080,
+    paths: int = 30000,
+    seed: int = 30,
+):
+    """Synthesized city-map stress scene with ~`paths` paths.
+
+    Mix: 70% building footprints (quads, small), 20% road segments (long
+    thin quads), 10% park blobs (quadratic-Bezier rounded polygons).
+    """
+    for order, it in enumerate(_paris30k_items(width, height, paths, seed)):
+        color = it[3]
+        if it[0] == "poly":
+            path = _polygon(it[1], it[2])
+        else:
+            sx, sy = it[1]
+            b = PathBuilder().move_to(Point(float(sx), float(sy)))
+            for (cpx, cpy), (ex, ey) in it[2]:
+                b.quad_to(Point(float(cpx), float(cpy)), Point(float(ex), float(ey)))
+            path = b.build()
+        composition.get_mut_or_insert_default(Order(order)).insert(path).set_props(
+            Props(func=Func.Draw(Style(fill=Fill.Solid(color))))
+        )

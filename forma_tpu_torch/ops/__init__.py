@@ -3,7 +3,10 @@
 
   line_setup     elementwise PyTorch over the line arrays + prefix sum
   expand_kernel  K1: per-line params onto virtual lines (csrc/expand.cu)
-  rasterize      ff64 grid-crossing math, packed keys, one torch.sort
+  rasterize_kernel
+                 K4: K1 fused with the ff64 emit of packed segment keys
+                 and payloads (csrc/rasterize.cu); the emit's plain version
+  rasterize      the "fused" (K4) or "split" (K1 + emit) path, one torch.sort
   grid_kernel    K2: per-run area|cover grids and run keys (csrc/grid.cu)
   runs           run extraction, cover-carry chains, paint units
   fold_kernel    K3: the per-tile paint fold (csrc/fold.cu)

@@ -1,11 +1,13 @@
 """Builds and loads the port's CUDA kernels; counts their launches.
 
 All kernels live in `forma_tpu_torch/csrc/*.cu`, each with a plain C entry
-point that returns `cudaGetLastError()`.  At first use they compile with
-`nvcc` for `sm_90a` into ONE shared library under `build/forma_tpu_torch/`
-at the repository root, keyed by a hash of the sources and flags, and load
-through `ctypes`.  `--fmad=false` keeps every f32 mul+add unfused, so the
-kernels round op by op exactly like the plain PyTorch versions.
+point that returns `cudaGetLastError()`.  At first use each source compiles
+with `nvcc` for `sm_90a` into an object file, all sources at once in
+parallel processes, and the objects link into ONE shared library under
+`build/forma_tpu_torch/` at the repository root, keyed by a hash of the
+sources and flags; it loads through `ctypes`.  `--fmad=false` keeps every
+f32 mul+add unfused, so the kernels round op by op exactly like the plain
+PyTorch versions.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine-independent half must stay importable without a CUDA toolkit.
@@ -28,13 +30,13 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "forma_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
 # Kernel launch counters: each wrapper adds one where it launches its
 # kernel, and nowhere else.
-LAUNCHES = {"expand": 0, "grid": 0, "fold": 0}
+LAUNCHES = {"expand": 0, "rasterize": 0, "grid": 0, "fold": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -43,6 +45,7 @@ _SIGNATURES = {
     "forma_expand": [_P, _P, _I64, _I64, _P, _P, _P],
     "forma_grid": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "forma_fold": [_P] * 9 + [_I64] * 4 + [_P, _P],
+    "forma_rasterize": [_P] * 3 + [_I64] * 8 + [_P, _P, _P],
 }
 
 _lib = None
@@ -86,21 +89,38 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    nvcc = _nvcc()
+    cu = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [str(out.parent / f"{p.stem}.o") for p in cu]
+    cmds = [
+        [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", o, str(p)]
+        for p, o in zip(cu, objs)
+    ]
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    log, failed = [], None
+    for c, proc in zip(cmds, procs):
+        text = proc.communicate()[0]
+        log.append(" ".join(c) + "\n" + text)
+        if proc.returncode and failed is None:
+            failed = (c, text, proc.returncode)
     with tempfile.NamedTemporaryFile(
         dir=out.parent, suffix=".so", delete=False
     ) as tmp:
         tmp_path = tmp.name
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp_path, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
+    if failed is None:
+        link = [nvcc, "-shared", "-Xcompiler", "-fPIC", "-o", tmp_path, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode:
+            failed = (link, proc.stdout + proc.stderr, proc.returncode)
+    (out.parent / "nvcc.log").write_text("".join(log))
+    if failed is not None:
         os.unlink(tmp_path)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+        c, text, rc = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(c)}\n{text}")
     os.replace(tmp_path, out)
     return out
 
@@ -138,3 +158,13 @@ def check(t: torch.Tensor, name: str, dtype, shape) -> None:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_aligned(t: torch.Tensor, name: str, nbytes: int) -> None:
+    """Wrapper argument check for a kernel that loads `t` in `nbytes`-wide
+    vectors: a view with a storage offset may start off that boundary."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(
+            f"{name}: the kernel loads it in {nbytes}-byte vectors; its data "
+            f"pointer is not {nbytes}-byte aligned (pass a fresh .clone())"
+        )

@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from forma_tpu import consts
+from .. import consts
 
 from . import _build
 from ._u32 import bits_f32

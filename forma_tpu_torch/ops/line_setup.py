@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from forma_tpu import consts
+from .. import consts
 
 from . import ff64
 from ._u32 import f2i32

@@ -12,7 +12,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from forma_tpu import consts
+from .. import consts
 
 from ._u32 import SENTINEL, f32_bits
 from .fold_kernel import SOLID_WIDTH, fold_tiles, style_layout

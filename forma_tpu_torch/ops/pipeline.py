@@ -56,7 +56,7 @@ def _core(
     px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
     width: int, height: int, rows: int, tiles_x: int,
     caps: Caps, features: Features, channels,
-    plain: bool = False, taps=None,
+    expand: str = "fused", plain: bool = False, taps=None,
 ):
     _paint.require_slice(features)
     params, slots, lengths, vline_ends = _ls.line_setup(
@@ -71,7 +71,7 @@ def _core(
         params, slots, lengths, vline_ends,
         torch.clamp(v_total, max=caps.vline),
         caps.vline, K_SEG, rows, tiles_x, 0,
-        slot_bits=slot_bits, plain=plain, taps=taps,
+        slot_bits=slot_bits, expand=expand, plain=plain, taps=taps,
     )
     return _back(
         key_hi, key_lo, payload, v_total, total_segs,
@@ -152,6 +152,7 @@ def render_frame(
     px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
     width: int, height: int, rows: int, tiles_x: int,
     caps: Caps, features: Features, channels,
+    expand: str = "fused",  # "fused" (K4) or "split" (K1 + PyTorch emit)
     plain: bool = False,  # run every kernel's plain PyTorch version
     taps=None,  # dict: receives each kernel's input tuple when given
 ):
@@ -160,7 +161,7 @@ def render_frame(
     return _core(
         px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
         width, height, rows, tiles_x, caps, features, channels,
-        plain=plain, taps=taps,
+        expand=expand, plain=plain, taps=taps,
     )
 
 

@@ -1,171 +1,60 @@
 """Device rasterizer: lines -> sorted packed pixel segments.
 
-Counterpart of `forma_tpu/ops/rasterize.py:77-289,379-392` on the packed
-single-key path:
+Counterpart of `forma_tpu/ops/rasterize.py:64-96,188-289,305-333,379-392`
+on the packed single-key path:
 
-1. Lines expand into virtual lines of at most `k_seg` pixel segments each
-   (K1, `expand_kernel.expand_params`).
-2. The i-th-intersection math (`rasterizer.rs:22-76`) runs densely over
-   [k_seg, V] in float-float arithmetic (`ops/ff64.py`).
-3. One unstable sort orders the packed [row | slot | tx] key with its
+1. Lines expand into virtual lines of at most `k_seg` pixel segments each,
+   and each virtual line emits its packed segments: the i-th-intersection
+   math (`rasterizer.rs:22-76`) in float-float arithmetic, keys and
+   payloads (`rasterize_kernel.py`).  Two paths compute the same segments:
+   `expand="fused"` runs K4 (`rasterize_kernel.rasterize_blocks`),
+   `expand="split"` runs K1 (`expand_kernel.expand_params`) and the emit
+   in PyTorch.  The JAX package picks between them with `FORMA_EXPAND`;
+   the port takes the caller's argument.
+2. One unstable sort orders the packed [row | slot | tx] key with its
    payload; invalid slots carry the sentinel and sort last.
-
-Pixel segments pack as
-
-    key     = ((tile_y + 1) << slot_bits | slot) << tx_bits | (tile_x + 1)
-    payload = local_x << 21 | local_y << 17 | (area + 1024) << 6 | (cover + 16)
-
-all u32 values held in int64 (`_u32.py`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from forma_tpu import consts
-
-from . import ff64
-from ._u32 import MASK32, SENTINEL, f2i32
+from ._u32 import SENTINEL
 from .expand_kernel import expand_params, expand_params_torch
-from .line_setup import (
-    PA, PAOH, PAOL, PB, PBOH, PBOL, PC, PCDH, PCDL, PD, PDX, PDY, PLEN,
-    PSLOT, PX0, PY0,
-)
+from .rasterize_kernel import _emit_packed, rasterize_blocks, rasterize_blocks_torch
 
 TX_BITS = 13  # tile_x + 1 in the canonical key_hi (max 4096 tiles of 16)
-ZERO_PAYLOAD = (1024 << 6) | 16  # area 0, cover 0
-
-
-def _find(fi, a_over, b_over, cd_over, a, b, c, d):
-    """i-th element of the merged progressions (`rasterizer.rs:32-61`)."""
-    ja = torch.where(
-        torch.isfinite(b),
-        ff64.ceil(ff64.sub(ff64.mul(b_over, ff64.ff(fi)), cd_over)),
-        fi,
-    )
-    jb = torch.where(
-        torch.isfinite(a),
-        ff64.ceil(ff64.add(ff64.mul(a_over, ff64.ff(fi)), cd_over)),
-        fi,
-    )
-    guess_a = a * ja + c
-    guess_b = b * jb + d
-    # Rust f32::min returns the non-NaN operand.
-    inf = torch.full_like(guess_a, float("inf"))
-    guess_a = torch.where(torch.isnan(guess_a), inf, guess_a)
-    guess_b = torch.where(torch.isnan(guess_b), inf, guess_b)
-    return torch.minimum(guess_a, guess_b)
-
-
-def _emit_core(col, j, v_live, k_seg: int, rows: int, tiles_x: int, row_lo: int):
-    """Dense per-segment math over [k_seg, V]; `col(i)` is param row i as a
-    [V] f32 vector.  Returns (tile_x, tile_y, slot, payload, valid)."""
-    slot_v = f2i32(col(PSLOT))
-    len_v = f2i32(col(PLEN))
-
-    av = col(PA)[None, :]
-    bv = col(PB)[None, :]
-    cv = col(PC)[None, :]
-    dv = col(PD)[None, :]
-    a_over = ff64.FF(col(PAOH)[None, :], col(PAOL)[None, :])
-    b_over = ff64.FF(col(PBOH)[None, :], col(PBOL)[None, :])
-    cd_over = ff64.FF(col(PCDH)[None, :], col(PCDL)[None, :])
-
-    seg_lo = j * k_seg
-    i_rel = seg_lo[None, :] + torch.arange(
-        k_seg, dtype=torch.int32, device=j.device
-    )[:, None]
-    in_range = v_live[None, :] & (i_rel < len_v[None, :])
-
-    # get_ith_pixel_segment_params (`rasterizer.rs:63-76`).
-    ii = i_rel - (cv != 0.0).to(torch.int32) - (dv != 0.0).to(torch.int32)
-    t0 = torch.clamp(
-        _find(ii.float(), a_over, b_over, cd_over, av, bv, cv, dv), min=0.0
-    )
-    t1 = torch.clamp(
-        _find((ii + 1).float(), a_over, b_over, cd_over, av, bv, cv, dv), max=1.0
-    )
-
-    x0v = col(PX0)[None, :]
-    y0v = col(PY0)[None, :]
-    dxv = col(PDX)[None, :]
-    dyv = col(PDY)[None, :]
-    x0f = t0 * dxv + x0v
-    y0f = t0 * dyv + y0v
-    x1f = t1 * dxv + x0v
-    y1f = t1 * dyv + y0v
-
-    def round_(v):
-        return f2i32(torch.floor(v + 0.5))
-
-    x0s, x1s, y0s, y1s = round_(x0f), round_(x1f), round_(y0f), round_(y1f)
-
-    border_x = torch.minimum(x0s, x1s) >> consts.PIXEL_SHIFT
-    border_y = torch.minimum(y0s, y1s) >> consts.PIXEL_SHIFT
-
-    tile_x = border_x >> consts.TILE_WIDTH_SHIFT
-    tile_y = border_y >> consts.TILE_HEIGHT_SHIFT
-    local_x = (border_x & (consts.TILE_WIDTH - 1)).long()
-    local_y = (border_y & (consts.TILE_HEIGHT - 1)).long()
-
-    border = (border_x << consts.PIXEL_SHIFT) + consts.PIXEL_WIDTH
-    cover = y1s - y0s
-    mult = torch.abs(x1s - x0s) + 2 * (border - torch.maximum(x0s, x1s))
-    area = mult * cover
-
-    # Tiles left of the viewport clamp to tile -1 (cover-carry catch-all);
-    # rows above/below and tiles right of the viewport are dropped
-    # (`pixel_segment.rs:47-52`, `painter/mod.rs:732-734`).
-    tile_x = torch.clamp(tile_x, min=-1)
-    tile_y = tile_y - row_lo
-    valid = in_range & (tile_y >= 0) & (tile_y < rows) & (tile_x < tiles_x)
-
-    payload = (
-        ((local_x << 21) | (local_y << 17)
-         | (((area.long() + 1024) & MASK32) << 6)
-         | ((cover.long() + 16) & MASK32))
-        & MASK32
-    )
-    payload = torch.where(valid, payload, torch.full_like(payload, ZERO_PAYLOAD))
-    slot = slot_v[None, :].long().expand(i_rel.shape)
-    return tile_x, tile_y, slot, payload, valid
-
-
-def _emit_packed(
-    col, j, v_live, k_seg: int, rows: int, tiles_x: int, row_lo: int,
-    slot_bits: int, tx_bits: int,
-):
-    """_emit_core + the single-u32 [rowb | slot | txb] key; sentinel where
-    invalid.  Layer slot sits above tile_x, so the segment sort yields
-    runs in (row, layer, tile_x) carry-chain order."""
-    tile_x, tile_y, slot, payload, valid = _emit_core(
-        col, j, v_live, k_seg, rows, tiles_x, row_lo
-    )
-    packed = (
-        (((((tile_y.long() + 1) & MASK32) << slot_bits) | slot) << tx_bits)
-        | ((tile_x.long() + 1) & MASK32)
-    ) & MASK32
-    packed = torch.where(valid, packed, torch.full_like(packed, SENTINEL))
-    return packed, payload
+EXPAND_PATHS = ("fused", "split")
 
 
 def _expand_emit_packed(
     params, lengths, vline_ends, v_total,
     v_cap: int, k_seg: int, rows: int, tiles_x: int, row_lo: int,
-    slot_bits: int, tx_bits: int, plain: bool = False, taps=None,
+    slot_bits: int, tx_bits: int, expand: str = "fused", plain: bool = False,
+    taps=None,
 ):
-    """K1 expansion + packed emit; returns flat unsorted (packed, payload)
-    int64 [k_seg * v_cap].  `plain` runs K1's plain PyTorch version on any
-    device; `taps` (a dict) receives K1's inputs."""
-    args = (params, vline_ends, v_cap)
-    if taps is not None:
-        taps["expand"] = args
-    PT, j = (expand_params_torch if plain else expand_params)(*args)
-    v_live = torch.arange(v_cap, device=params.device) < v_total
-    packed, payload = _emit_packed(
-        lambda i: PT[i], j, v_live, k_seg, rows, tiles_x, row_lo,
-        slot_bits, tx_bits,
-    )
+    """Expansion + packed emit through `expand`'s path; returns flat
+    unsorted (packed, payload) int64 [k_seg * v_cap].  `plain` runs the
+    kernel's plain PyTorch version on any device; `taps` (a dict) receives
+    the kernel's inputs."""
+    if expand == "fused":
+        args = (params, vline_ends, v_total, v_cap, k_seg, rows, tiles_x,
+                row_lo, slot_bits, tx_bits)
+        if taps is not None:
+            taps["rasterize"] = args
+        packed, payload = (rasterize_blocks_torch if plain else rasterize_blocks)(*args)
+    elif expand == "split":
+        args = (params, vline_ends, v_cap)
+        if taps is not None:
+            taps["expand"] = args
+        pt, j = (expand_params_torch if plain else expand_params)(*args)
+        v_live = torch.arange(v_cap, device=params.device) < v_total
+        packed, payload = _emit_packed(
+            lambda i: pt[i], j, v_live, k_seg, rows, tiles_x, row_lo,
+            slot_bits, tx_bits,
+        )
+    else:
+        raise ValueError(f"expand must be one of {EXPAND_PATHS}, got {expand!r}")
     return packed.reshape(-1), payload.reshape(-1)
 
 
@@ -189,7 +78,8 @@ def unpack_packed_keys(packed, slot_bits: int, tx_bits: int):
 def rasterize_sort(
     params, slots, lengths, vline_ends, v_total,
     v_cap: int, k_seg: int, rows: int, tiles_x: int,
-    row_lo: int = 0, slot_bits: int = 0, plain: bool = False, taps=None,
+    row_lo: int = 0, slot_bits: int = 0, expand: str = "fused",
+    plain: bool = False, taps=None,
 ):
     """Returns sorted (key_hi, key_lo, payload) int64 [v_cap * k_seg].
 
@@ -206,7 +96,7 @@ def rasterize_sort(
     packed, payload = _expand_emit_packed(
         params, lengths, vline_ends, v_total,
         v_cap, k_seg, rows, tiles_x, row_lo, slot_bits, tx_bits,
-        plain=plain, taps=taps,
+        expand=expand, plain=plain, taps=taps,
     )
     packed, order = torch.sort(packed, stable=False)
     payload = payload[order]

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from forma_tpu import consts
+from .. import consts
 
 from ._u32 import MASK32, SENTINEL
 from .grid_kernel import grid_build, grid_build_torch

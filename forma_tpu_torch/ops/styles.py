@@ -20,8 +20,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from forma_tpu.atlas import AtlasAllocator
-from forma_tpu.styling import Fill, Func, GradientType
+from ..atlas import AtlasAllocator
+from ..styling import Fill, Func, GradientType
 
 from .paint import Features
 

@@ -1,0 +1,139 @@
+"""Where the time of a paris-30k frame goes on the card, stage by stage.
+
+    python -m forma_tpu_torch.profile_stages [--frames 3]
+
+Renders paris-30k at 1920x1080 (`demos.scenes.paris30k`) through
+`Renderer.render` on each expand path ("fused" and "split") and prints,
+per path:
+
+1. the unfenced frame time (host clock around `render`, which returns the
+   frame on the host), median / min / max over `--frames` frames after
+   one warm-up;
+2. the fenced stage table: every pipeline stage wrapped in
+   `torch.cuda.synchronize()` before and after, median ms over the frames;
+   nested rows ("  of which") are inside the row above them;
+3. `torch.profiler` over 2 frames: the device time of all device-side
+   events, the device's busy share of the frames' wall time, and the
+   events and host ops that take the most device time.
+
+Needs a CUDA card; it does not fall back to the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import time
+from collections import defaultdict
+
+import torch
+
+from . import Color, Composition, Renderer
+from .demos import scenes
+from .ops import fold_kernel, pipeline, rasterize, runs
+
+W, H = 1920, 1080
+# (module, attribute, row label, nesting depth) in frame order.
+STAGES = (
+    (pipeline._ls, "line_setup", "line_setup", 0),
+    (pipeline._raster, "rasterize_sort", "rasterize_sort (expand, emit, sort, unpack)", 0),
+    (rasterize, "rasterize_blocks", "K4 rasterize_blocks (fused expand + emit)", 1),
+    (rasterize, "expand_params", "K1 expand_params", 1),
+    (rasterize, "_emit_packed", "ff64 emit in PyTorch", 1),
+    (pipeline._runs, "extract_runs", "extract_runs", 0),
+    (pipeline._runs, "run_data", "run_data", 0),
+    (runs, "grid_build", "K2 grid_build", 1),
+    (pipeline._runs, "build_units", "build_units", 0),
+    (pipeline._paint, "cull_units_keep", "cull_units_keep", 0),
+    (pipeline._paint, "_renumber_units", "_renumber_units", 0),
+    (pipeline._paint, "paint", "paint", 0),
+    (fold_kernel, "paint_fold", "K3 paint_fold", 1),
+    (pipeline._srgb, "pack_srgb", "pack_srgb", 0),
+)
+
+
+def _fenced(fn, times):
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    return wrapper
+
+
+def _frames(r, comp, n):
+    clear = Color(1.0, 1.0, 1.0, 1.0)
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        r.render(comp, W, H, clear)
+        times.append((time.perf_counter() - t) * 1e3)
+    return times
+
+
+def _stage_table(r, comp, n):
+    acc = defaultdict(list)
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in STAGES]
+    try:
+        for (mod, attr, fn), (_, _, label, _) in zip(saved, STAGES):
+            setattr(mod, attr, _fenced(fn, acc[label]))
+        frames = _frames(r, comp, n)
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    total = statistics.median(frames)
+    print(f"  fenced frame: {total:.2f} ms (median of {n})")
+    top = 0.0
+    for _, _, label, depth in STAGES:
+        if acc[label]:
+            ms = statistics.median(acc[label])
+            top += ms if depth == 0 else 0.0
+            print(f"  {'  of which ' if depth else ''}{label}: {ms:.2f} ms")
+    print(f"  renderer host work, diag sync and frame readback: {total - top:.2f} ms")
+
+
+def _device_profile(r, comp):
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _frames(r, comp, 2)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    avgs = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # Device-side events (kernels, copies, memsets) only: a host op's self
+    # device time repeats the time of the kernels it launched.
+    busy = sum(dev_us(e) for e in avgs if str(e.device_type).endswith("CUDA")) / 1e3
+    print(f"  profiler, 2 frames: self device time {busy:.2f} ms of {wall:.2f} ms wall "
+          f"(device busy {100 * busy / wall:.1f}%)")
+    for e in sorted(avgs, key=dev_us, reverse=True)[:10]:
+        print(f"    {dev_us(e) / 1e3:8.3f} ms  {e.count:5d} calls  {e.key[:90]}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=3)
+    args = ap.parse_args(argv)
+    comp = Composition()
+    scenes.paris30k(comp, W, H)
+    print(f"card: {torch.cuda.get_device_name(0)}")
+    for expand in rasterize.EXPAND_PATHS:
+        r = Renderer(expand=expand)
+        _frames(r, comp, 1)  # warm-up: grows the capacity buckets
+        frames = _frames(r, comp, args.frames)
+        print(f"expand={expand}: unfenced frame median {statistics.median(frames):.2f} ms "
+              f"(min {min(frames):.2f}, max {max(frames):.2f}, {args.frames} frames), "
+              f"diag {r.last_diag.tolist()}")
+        _stage_table(r, comp, args.frames)
+        _device_profile(r, comp)
+
+
+if __name__ == "__main__":
+    main()

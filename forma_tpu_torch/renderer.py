@@ -18,15 +18,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from forma_tpu import consts
-from forma_tpu.buffer import RGBA
-from forma_tpu.buffer import normalize_channels as _normalize_channels
-from forma_tpu.composition import Composition
-from forma_tpu.styling import Color
-
+from . import consts
+from .buffer import RGBA
+from .buffer import normalize_channels as _normalize_channels
+from .composition import Composition
 from .ops import pipeline as _pipe
 from .ops import styles as _styles
 from .ops._u32 import from_numpy
+from .styling import Color
 
 
 def _bucket(n: int, lo: int = 256) -> int:
@@ -57,13 +56,30 @@ def _not_ported(what: str, item: str):
 
 
 class Renderer:
-    """Renders compositions with PyTorch on `device` (default: the first
-    CUDA device when one is present, else the CPU)."""
+    """Renders compositions with PyTorch on `device`.
 
-    def __init__(self, device=None, caps: Optional[_pipe.Caps] = None):
+    `device=None` means the CUDA card, and raises `RuntimeError` when
+    PyTorch sees none: the CPU is used only when the caller passes it
+    (`Renderer("cpu")`), and then every kernel runs its plain PyTorch
+    version.  `expand` picks the rasterizer's expand path, one of
+    `ops.rasterize.EXPAND_PATHS` (checked there): `"fused"` (the fused
+    expand + emit kernel, the default and the faster) or `"split"` (the
+    expand kernel, then the emit in PyTorch).  Both compute the same
+    segments; `"split"` is not a tuning knob, it exists so that the expand
+    kernel stays on a path that is driven and checked."""
+
+    def __init__(
+        self, device=None, caps: Optional[_pipe.Caps] = None, expand: str = "fused"
+    ):
         if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Renderer(): no CUDA device is available to PyTorch; pass "
+                    "device='cpu' to render on the CPU"
+                )
+            device = "cuda"
         self.device = torch.device(device)
+        self.expand = expand
         self._geom_cache_key = None
         self._geom_cache = None
         self._slots_cache_key = None
@@ -317,7 +333,7 @@ class Renderer:
                 px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
                 width, height, rows, tiles_x,
                 self._caps, st_host.features, chans,
-                plain=plain, taps=taps,
+                expand=self.expand, plain=plain, taps=taps,
             )
             d = diag.cpu().numpy()
             caps = self._caps

@@ -15,6 +15,7 @@ from forma_tpu import Color, Composition, Fill, Func, Order, PathBuilder, Point,
 from forma_tpu.ops import paint as jpaint
 from forma_tpu.styling import FillRule
 from forma_tpu_torch import Renderer
+from forma_tpu_torch.convert import composition_from_jax
 from forma_tpu_torch.ops import line_setup, paint, pipeline, rasterize, runs
 from forma_tpu_torch.ops.fold_kernel import fold_tiles, paint_fold, paint_fold_torch, tile_spans
 
@@ -60,8 +61,9 @@ def _deep_stack(comp):
 
 def _fold_inputs(build, w, h):
     """Runs the port's stages up to the fold (as `pipeline._core` does)."""
-    comp = Composition()
-    build(comp)
+    jax_comp = Composition()
+    build(jax_comp)
+    comp = composition_from_jax(jax_comp)
     r = Renderer("cpu")
     r.render(comp, w, h, CLEAR)  # grows the capacity buckets
     caps = r._caps

@@ -1,9 +1,11 @@
 """The PyTorch port's slice as a whole: `forma_tpu_torch.Renderer.render`
 on the CPU (every kernel's plain PyTorch version) against the numpy
-oracle and the JAX `Renderer.render`.  Max channel diff <= 1/255, the bar
-for a device backend; the diagnostics vector must equal JAX's.  Also:
-the port imports no JAX, un-ported features raise, `convert` carries the
-JAX package's frame state across, and no kernel launches on the CPU."""
+oracle and the JAX `Renderer.render`.  Scenes are built in `forma_tpu`
+(for JAX and the oracle) and handed to the port through
+`convert.composition_from_jax`.  Max channel diff <= 1/255, the bar for a
+device backend; the diagnostics vector must equal JAX's.  Also: the port
+imports no JAX, un-ported features raise, `convert` carries the JAX
+package's frame state across, and no kernel launches on the CPU."""
 
 import subprocess
 import sys
@@ -20,7 +22,7 @@ from forma_tpu import (
 from forma_tpu.backend_numpy import render as oracle_render
 from forma_tpu.demos import scenes
 from forma_tpu_torch import Caps, Renderer
-from forma_tpu_torch.convert import from_jax_args
+from forma_tpu_torch.convert import composition_from_jax, from_jax_args
 from forma_tpu_torch.ops import _build, pipeline
 from forma_tpu_torch.ops.paint import Features
 
@@ -52,7 +54,7 @@ def test_circles_matches_jax_and_oracle():
 
     comp = _circles()
     r = Renderer("cpu")
-    got = r.render(comp, 64, 64, CLEAR)
+    got = r.render(composition_from_jax(comp), 64, 64, CLEAR)
     assert got.shape == (64, 64, 4) and got.dtype == np.uint8
     assert _max_diff(got, oracle_render(comp, 64, 64, clear_color=CLEAR)) <= 1
 
@@ -71,7 +73,7 @@ def test_solid_e2e_scene_matches_oracle(name):
     comp = Composition()
     build(comp)
     r = Renderer("cpu")
-    got = r.render(comp, 64, 64, Color(1.0, 1.0, 1.0, 0.0))
+    got = r.render(composition_from_jax(comp), 64, 64, Color(1.0, 1.0, 1.0, 0.0))
     assert r._styles_cache[0].features == Features()
     want = oracle_render(comp, 64, 64, clear_color=Color(1.0, 1.0, 1.0, 0.0))
     assert _max_diff(got, want) <= 1
@@ -118,7 +120,7 @@ def test_random_solid_scene_matches_oracle(seed, size, layers):
             ))
         order += int(rng.integers(1, 3))
     clear = Color(*[float(v) for v in rng.uniform(0, 1, 4)])
-    got = Renderer("cpu").render(comp, size, size, clear)
+    got = Renderer("cpu").render(composition_from_jax(comp), size, size, clear)
     want = oracle_render(comp, size, size, clear_color=clear)
     assert _max_diff(got, want) <= 1
 
@@ -126,7 +128,8 @@ def test_random_solid_scene_matches_oracle(seed, size, layers):
 def test_import_leaves_jax_out():
     code = (
         "import sys, forma_tpu_torch, forma_tpu_torch.convert, "
-        "forma_tpu_torch.ops.pipeline; assert 'jax' not in sys.modules"
+        "forma_tpu_torch.ops.pipeline; assert 'jax' not in sys.modules; "
+        "assert not [m for m in sys.modules if m.split('.')[0] == 'forma_tpu']"
     )
     subprocess.run([sys.executable, "-c", code], check=True)
 
@@ -155,11 +158,11 @@ def test_unported_features_raise(build):
     comp = Composition()
     build(comp)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Renderer("cpu").render(comp, 64, 64, CLEAR)
+        Renderer("cpu").render(composition_from_jax(comp), 64, 64, CLEAR)
 
 
 def test_unported_entry_points_raise():
-    comp = _circles(4)
+    comp = composition_from_jax(_circles(4))
     r = Renderer("cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         r.render(comp, 64, 64, CLEAR, crop=object())
@@ -191,7 +194,7 @@ def test_convert_round_trips_graft_prep():
     assert got[7]["orders"].dtype == torch.int64
 
     r = Renderer("cpu")
-    want = r.render(_circles(16), 64, 64, CLEAR)
+    want = r.render(composition_from_jax(_circles(16)), 64, 64, CLEAR)
     frame, diag = pipeline.render_frame(
         *got, 64, 64, 4, 4, Caps(*r._caps), Features(*features), (0, 1, 2, 3),
     )
@@ -201,5 +204,7 @@ def test_convert_round_trips_graft_prep():
 
 def test_no_kernel_launches_on_cpu():
     _build.reset_launches()
-    Renderer("cpu").render(_circles(8), 64, 64, CLEAR)
-    assert _build.LAUNCHES == {"expand": 0, "grid": 0, "fold": 0}
+    comp = composition_from_jax(_circles(8))
+    for expand in ("fused", "split"):
+        Renderer("cpu", expand=expand).render(comp, 64, 64, CLEAR)
+    assert _build.LAUNCHES == {"expand": 0, "rasterize": 0, "grid": 0, "fold": 0}
