@@ -13,12 +13,16 @@ failure exits non-zero:
 3. paris-30k at 1920x1080: one frame through `Renderer.render_device` on
    each expand path records the inputs of K4, K2 and K3 (`expand="fused"`)
    and of K1 (`expand="split"`); each kernel then runs on them against its
-   plain PyTorch version (bit-equal required), with median times over 20
-   runs by CUDA events, the plain version's time, the bound from the bytes
-   (at the TPU function's 32-bit widths; the int64 layout the port moves
-   is printed beside them) and f32 operations of these inputs, and the
-   time of one PyTorch library call that computes most of the same
-   function, where there is one;
+   plain PyTorch version (bit-equal required), with times by CUDA events
+   (`ms`: median of 5 batches of 10 calls queued back to back; `ms_sync`:
+   median of 20 calls, each synchronised alone, which also counts the
+   wrapper's host work when it exceeds the queue's slack), the wrapper's
+   host microseconds per call, the plain version's time (median of 3
+   calls), the bound from the bytes (at the TPU function's 32-bit widths;
+   for K3 only the rows the fold addresses, with the full capacity tables
+   and the int64 layout the port moves printed beside them) and f32
+   operations of these inputs, and the time of one PyTorch library call
+   that computes most of the same function, where there is one;
 4. the circles configuration (64 circles, 256x256, fixed capacities)
    through `Renderer.render` on the card, against the same composition
    rendered by the port on the CPU, every kernel's plain version (max
@@ -27,14 +31,33 @@ failure exits non-zero:
    `expand="fused"` and `expand="split"`: launch counters reset, one
    warm-up and 5 timed frames, counters read (each kernel of the path must
    have launched); then the same frame through every kernel's plain
-   version on the card (max channel diff <= 1).
+   version on the card (max channel diff <= 1);
+6. paris-30k-styled at 1920x1080 (linear-gradient buildings, Screen-
+   blended roads, radial-gradient parks): K3's styled specialisation on
+   the frame's own inputs against its plain version, as in phase 3; then
+   the frame through `Renderer.render` as in phase 5 (counters, warm-up
+   and 5 timed frames, peak memory) against the plain path on the card;
+7. the styled mix (`scenes.styled_mix`: 400 layers at 512x512 with
+   gradients, all 16 blend modes, clips and clipped draws, both fill
+   rules): K3's clip specialisation on its inputs against its plain
+   version, then the frame through `Renderer.render` (counters read)
+   against the port's CPU render (max channel diff <= 1).
 
-The last three lines are a JSON object with per-kernel results, the card's
-name and power limit, and the status line `{"ok": true, "device": {...}}`.
+The last three lines are a JSON object with per-kernel results (K3 once
+per specialisation: solid, styled, clip), the card's name and power limit,
+and the status line `{"ok": true, "device": {...}}`.
+
+    python3 chip_smoke.py --fold-timing DIR [--scene paris|styled]
+
+times K3 alone instead, on one paris-30k (or paris-30k-styled) frame's own
+inputs, with the port of the checkout in DIR (for example a parent commit
+unpacked with `git archive`), in both ways above and with the wrapper's host
+microseconds: run it for two trees in one call to compare them.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import shutil
@@ -47,20 +70,29 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+K3 = "forma_tpu/ops/paint_pallas.py:468"
 KERNELS = (
-    # name (= launch counter), source, TPU kernel it replaces, the expand
-    # path whose timed run counts its launches
+    # name (= launch counter), source, TPU kernel it replaces, the run whose
+    # launches count for it: an expand path of paris-30k, the styled frame
+    # or the styled mix
     ("expand", "forma_tpu_torch/csrc/expand.cu",
      "forma_tpu/ops/expand_pallas.py:175", "split"),
     ("rasterize", "forma_tpu_torch/csrc/rasterize.cu",
      "forma_tpu/ops/expand_pallas.py:356", "fused"),
     ("grid", "forma_tpu_torch/csrc/grid.cu",
      "forma_tpu/ops/grid_pallas.py:314", "fused"),
-    ("fold", "forma_tpu_torch/csrc/fold.cu",
-     "forma_tpu/ops/paint_pallas.py:468", "fused"),
+    ("fold", "forma_tpu_torch/csrc/fold.cu", K3, "fused"),
+    ("fold_styled", "forma_tpu_torch/csrc/fold.cu", K3, "styled"),
+    ("fold_clip", "forma_tpu_torch/csrc/fold.cu", K3, "mix"),
 )
-PATHS = {"fused": ("rasterize", "grid", "fold"), "split": ("expand", "grid", "fold")}
+PATHS = {
+    "fused": ("rasterize", "grid", "fold"),
+    "split": ("expand", "grid", "fold"),
+    "styled": ("rasterize", "grid", "fold_styled"),
+    "mix": ("rasterize", "grid", "fold_clip"),
+}
 PARIS_W, PARIS_H = 1920, 1080
+MIX_W, MIX_H = 512, 512
 
 # H100 SXM peaks (NVIDIA's data sheet, at the full 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -68,10 +100,16 @@ F32_OPS_PER_S = 67e12
 # f32 operations per unit of work, counted from the kernel sources:
 # csrc/rasterize.cu per pixel segment in range (two float-float `find`s of
 # 88 ops each, 2 clamps, 4 endpoints of 5 ops); csrc/fold.cu per unit and
-# pixel (coverage 7, Over 22).  K1 and K2 do no float arithmetic.
+# pixel: coverage 7 and Over 22; a gradient fill 16 for t (linear and
+# radial, select), one compare per stop and 25 to interpolate the one
+# segment the pixel falls in (the work the stop chain needs; the select
+# tree computes every segment); a clip frame 2 (clip-mask and draw
+# multiplies); a blend mode its count below (three channels).  K1 and K2
+# do no float arithmetic.
 K4_F32_OPS_PER_SEGMENT = 198
 K3_F32_OPS_PER_UNIT_PIXEL = 29
-
+K3_GRAD_OPS, K3_STOP_OPS, K3_SEGMENT_OPS, K3_CLIP_OPS = 16, 1, 25, 2
+K3_BLEND_OPS = (0, 3, 9, 21, 3, 3, 12, 15, 21, 51, 6, 12, 84, 84, 59, 59)
 
 def say(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
@@ -85,8 +123,31 @@ def gpu_record() -> str:
     return out[0].strip()
 
 
-def time_ms(fn, runs: int = 20) -> float:
-    """Median milliseconds of `fn()` by CUDA events (after one warm-up)."""
+def time_ms(fn, batches: int = 5, per_batch: int = 10) -> float:
+    """Milliseconds per call of `fn()` by CUDA events, after one warm-up:
+    the median over `batches` of the mean of `per_batch` calls queued back
+    to back, so the host work of each call overlaps the device work of the
+    one before (one synchronised call per event pair would also count the
+    wrapper's host time whenever it exceeds the queue's slack)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(batches):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(per_batch):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / per_batch)
+    return statistics.median(times)
+
+
+def time_ms_sync(fn, runs: int = 20) -> float:
+    """Median milliseconds of `fn()` by CUDA events, one synchronised call
+    per event pair (after one warm-up): the device time plus whatever of
+    the call's host work the queue does not hide."""
     fn()
     times = []
     for _ in range(runs):
@@ -97,6 +158,21 @@ def time_ms(fn, runs: int = 20) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def host_us(fn, runs: int = 100) -> float:
+    """Median host microseconds of one call of `fn()` on an idle device:
+    the wrapper's checks, allocation and launch (the kernel runs on after
+    it returns)."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e6)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -128,6 +204,56 @@ def tensor_bytes(ts, port_layout: bool = False) -> int:
     return sum(t.numel() * width(t) for t in ts if isinstance(t, torch.Tensor))
 
 
+def fold_units(args) -> tuple:
+    """The units K3 folds on these inputs, tile by tile (units ust[t] ..
+    ust[t] + cnt[t] - 1 of tile t): (unit count, run of each unit, whether
+    it is virtual), as the kernel addresses them."""
+    ust, cnt, src2, tx_s, tiles_x = args[0], args[1], args[2], args[7], args[10]
+    n = cnt.long()
+    tile = torch.repeat_interleave(torch.arange(ust.shape[0], device=ust.device), n)
+    k = torch.arange(tile.numel(), device=ust.device) - (torch.cumsum(n, 0) - n)[tile]
+    u = (ust.long()[tile] + k).clamp(max=src2.shape[0] - 1)
+    r = src2[u].long().clamp(0, tx_s.shape[0] - 1)
+    return u.numel(), r, tx_s[r].long() != tile % tiles_x
+
+
+def fold_bytes(args, out) -> int:
+    """Bytes K3 must move on these inputs, 4 per i32 or f32 value: the tile
+    spans; src2 (and virt_u in a clip frame) of each folded unit; the grid
+    row and carry_in row of each run a real unit folds; the carry_after row
+    of each run a virtual unit folds; tx_s and the style row of each run
+    folded; clear; the output."""
+    n_units, r, virt = fold_units(args)
+    ust, virt_u, style_s = args[0], args[3], args[8]
+    real_runs = torch.unique(r[~virt]).numel()
+    virt_runs = torch.unique(r[virt]).numel()
+    runs = torch.unique(r).numel()
+    words = (2 * ust.numel() + n_units * (1 if virt_u is None else 2)
+             + real_runs * (256 + 16) + virt_runs * 16 + runs * (1 + style_s.shape[1]) + 4)
+    return 4 * words + tensor_bytes(out)
+
+
+def fold_unit_ops(args) -> torch.Tensor:
+    """f32 operations per pixel of each unit K3 folds (data-dependent: its
+    fill type and blend mode), int64 [units folded]."""
+    from forma_tpu_torch.ops.fold_kernel import style_layout
+
+    style_s, features, ms = args[8], args[11], args[12]
+    lay = style_layout(features, ms)
+    st = style_s[fold_units(args)[1]]
+    ops = torch.full((st.shape[0],), K3_F32_OPS_PER_UNIT_PIXEL, dtype=torch.int64,
+                     device=st.device)
+    if lay.ft >= 0:
+        grad = K3_GRAD_OPS + K3_STOP_OPS * ms + K3_SEGMENT_OPS
+        ops += torch.where(st[:, lay.ft] == 1, grad, 0)
+    if lay.blend >= 0:
+        table = torch.tensor(K3_BLEND_OPS, dtype=torch.int64, device=st.device)
+        ops += table[st[:, lay.blend].long().clamp(0, 15)]
+    if lay.func >= 0:
+        ops += K3_CLIP_OPS
+    return ops
+
+
 def f32_ops(name: str, args) -> int:
     """f32 operations the kernel does on these inputs (data-dependent)."""
     if name == "rasterize":
@@ -135,8 +261,8 @@ def f32_ops(name: str, args) -> int:
         # Segments in range: every live line's length, up to v_total vlines.
         assert int(v_total) == int(vline_ends[-1]) <= v_cap
         return K4_F32_OPS_PER_SEGMENT * int(params[:, 15].double().sum())
-    if name == "fold":
-        return K3_F32_OPS_PER_UNIT_PIXEL * 256 * int(args[1].long().sum())
+    if name.startswith("fold"):
+        return 256 * int(fold_unit_ops(args).sum())
     return 0
 
 
@@ -161,6 +287,47 @@ def library_call(name: str, args):
     return None
 
 
+def check_kernel(name: str, kern, plain, args) -> dict:
+    """A kernel against its plain version on a frame's own inputs (bit-equal
+    required); returns the kernels line's numbers for it."""
+    got = kern(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max_abs_err(got, want)
+    ms = time_ms(lambda: kern(*args))
+    ms_sync = time_ms_sync(lambda: kern(*args))
+    wrapper_us = host_us(lambda: kern(*args))
+    plain_ms = time_ms(lambda: plain(*args), batches=3, per_batch=1)
+    table_bytes = tensor_bytes(args) + tensor_bytes(got)
+    port_bytes = tensor_bytes(args, True) + tensor_bytes(got, True)
+    nbytes = fold_bytes(args, got) if name.startswith("fold") else table_bytes
+    ops = f32_ops(name, args)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    lib = library_call(name, args)
+    library_ms = time_ms(lib[1]) if lib else None
+    shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
+    say("kernel", name=name, max_abs_err=err, ms=f"{ms:.4f}", ms_sync=f"{ms_sync:.4f}",
+        host_us=f"{wrapper_us:.1f}", plain_ms=f"{plain_ms:.4f}", bytes=nbytes,
+        table_bytes=table_bytes, port_layout_bytes=port_bytes, f32_ops=ops,
+        bound_ms=f"{max(bytes_ms, ops_ms):.4f}",
+        library_ms="none" if library_ms is None else f"{library_ms:.4f}",
+        input_shapes=str(shapes).replace(" ", ""))
+    if lib:
+        say("kernel", name=name, library_call=repr(lib[0]))
+    if err != 0.0:
+        raise AssertionError(f"{name}: kernel differs from its plain version ({err})")
+    return {
+        "max_abs_err": err, "ms": ms, "ms_sync": ms_sync, "host_us": wrapper_us,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+    }
+
+
 def check_kernels(taps) -> dict:
     """Phase 3: every kernel against its plain version on the frame's own
     inputs; returns {name: dict of the kernels line's numbers}."""
@@ -175,42 +342,18 @@ def check_kernels(taps) -> dict:
         "grid": (gk.grid_build, gk.grid_build_torch),
         "fold": (fk.paint_fold, fk.paint_fold_torch),
     }
-    res = {}
-    for name, (kern, plain) in pairs.items():
-        args = taps[name]
-        got = kern(*args)
-        torch.cuda.synchronize()
-        want = plain(*args)
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max_abs_err(got, want)
-        ms = time_ms(lambda: kern(*args))
-        plain_ms = time_ms(lambda: plain(*args))
-        nbytes = tensor_bytes(args) + tensor_bytes(got)
-        port_bytes = tensor_bytes(args, True) + tensor_bytes(got, True)
-        ops = f32_ops(name, args)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / F32_OPS_PER_S * 1e3
-        lib = library_call(name, args)
-        library_ms = time_ms(lib[1]) if lib else None
-        shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
-        say("kernel", name=name, max_abs_err=err, ms=f"{ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}", bytes=nbytes, port_layout_bytes=port_bytes,
-            f32_ops=ops,
-            bound_ms=f"{max(bytes_ms, ops_ms):.4f}",
-            library_ms="none" if library_ms is None else f"{library_ms:.4f}",
-            input_shapes=str(shapes).replace(" ", ""))
-        if lib:
-            say("kernel", name=name, library_call=repr(lib[0]))
-        if err != 0.0:
-            raise AssertionError(f"{name}: kernel differs from its plain version ({err})")
-        res[name] = {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms,
-        }
-    return res
+    return {name: check_kernel(name, *pair, taps[name]) for name, pair in pairs.items()}
+
+
+def check_fold(name: str, args) -> dict:
+    """K3's specialisation `name` (the launch counter its features select)
+    against its plain version on a frame's own inputs."""
+    from forma_tpu_torch.ops import fold_kernel as fk
+
+    if fk.variant(args[11]) != name:
+        raise AssertionError(f"{name}: the frame's features {args[11]} select "
+                             f"{fk.variant(args[11])}")
+    return check_kernel(name, fk.paint_fold, fk.paint_fold_torch, args)
 
 
 def circles_vs_cpu(device) -> None:
@@ -246,46 +389,127 @@ def circles_vs_cpu(device) -> None:
         raise AssertionError(f"circles: max channel diff {diff} > 1 vs the port on the CPU")
 
 
-def paris_path(r, comp, ref, n_timed: int = 5) -> dict:
-    """Phase 5 for one expand path: counters reset, warm-up + timed frames
+def frame_path(label: str, path: str, r, comp, size, ref, n_timed: int = 5) -> dict:
+    """Phases 5-7 for one path: counters reset, warm-up + timed frames
     through Renderer.render, counters read; the frame against `ref`."""
     from forma_tpu_torch import Color
     from forma_tpu_torch.ops import _build
 
+    w, h = size
     clear = Color(1.0, 1.0, 1.0, 1.0)
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    img = r.render(comp, PARIS_W, PARIS_H, clear)
+    img = r.render(comp, w, h, clear)
     times = []
     for _ in range(n_timed):
         t = time.perf_counter()
-        img = r.render(comp, PARIS_W, PARIS_H, clear)
+        img = r.render(comp, w, h, clear)
         times.append((time.perf_counter() - t) * 1e3)
     launches = dict(_build.LAUNCHES)
     diff = np.abs(img.astype(int) - ref.astype(int))
-    say("paris", expand=r.expand, frame_ms_median=f"{statistics.median(times):.2f}",
+    say(label, path=path, frame_ms_median=f"{statistics.median(times):.2f}",
         frame_ms_min=f"{min(times):.2f}", frame_ms_max=f"{max(times):.2f}",
         frames=len(times), diag=r.last_diag.tolist(),
         max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches)
-    say("paris", expand=r.expand, max_diff_vs_plain=int(diff.max()),
+    say(label, path=path, max_diff_vs_ref=int(diff.max()),
         differing_pixels=int((diff > 0).any(axis=-1).sum()),
         painted_pixels=int((img[..., :3] != 255).any(axis=-1).sum()))
-    if img.shape != (PARIS_H, PARIS_W, 4):
-        raise AssertionError(f"paris: frame shape {img.shape}")
-    for name in PATHS[r.expand]:
+    if img.shape != (h, w, 4):
+        raise AssertionError(f"{label}: frame shape {img.shape}")
+    for name in PATHS[path]:
         if launches[name] < 1:
-            raise AssertionError(
-                f"paris: kernel {name} was never launched on the {r.expand} path")
+            raise AssertionError(f"{label}: kernel {name} was never launched on the {path} path")
     if diff.max() > 1:
-        raise AssertionError(f"paris ({r.expand}): max channel diff {diff.max()} > 1 vs the plain path")
+        raise AssertionError(f"{label} ({path}): max channel diff {diff.max()} > 1")
     return launches
 
 
+def paris_styled(device) -> tuple:
+    """Phase 6: paris-30k-styled at 1920x1080; returns (K3 styled numbers,
+    launches)."""
+    from forma_tpu_torch import Color, Composition, Renderer
+    from forma_tpu_torch.demos import scenes
+
+    t = time.perf_counter()
+    comp = Composition()
+    scenes.paris30k_styled(comp, PARIS_W, PARIS_H)
+    say("styled", scene_build_s=f"{time.perf_counter() - t:.1f}", layers=len(comp.layers))
+    clear = Color(1.0, 1.0, 1.0, 1.0)
+    r = Renderer(device)
+    taps = {}
+    t = time.perf_counter()
+    r.render_device(comp, PARIS_W, PARIS_H, clear, taps=taps)
+    torch.cuda.synchronize()
+    say("styled", first_frame_s=f"{time.perf_counter() - t:.2f}", caps=tuple(r._caps),
+        regrows=r.regrow_count, features=str(taps["fold"][11]).replace(" ", ""))
+    res = check_fold("fold_styled", taps["fold"])
+    del taps
+    ref, _ = r.render_device(comp, PARIS_W, PARIS_H, clear, plain=True)
+    ref = ref[:PARIS_H, :PARIS_W].cpu().numpy()
+    launches = frame_path("styled", "styled", r, comp, (PARIS_W, PARIS_H), ref)
+    return res, launches
+
+
+def styled_mix(device) -> tuple:
+    """Phase 7: the styled mix at 512x512 on the card against the port's
+    CPU render; returns (K3 clip numbers, launches)."""
+    from forma_tpu_torch import Color, Composition, Renderer
+    from forma_tpu_torch.demos import scenes
+
+    comp = Composition()
+    scenes.styled_mix(comp, 400, MIX_W, MIX_H)
+    clear = Color(1.0, 1.0, 1.0, 1.0)
+    r = Renderer(device)
+    taps = {}
+    r.render_device(comp, MIX_W, MIX_H, clear, taps=taps)
+    say("mix", layers=len(comp.layers), caps=tuple(r._caps),
+        features=str(taps["fold"][11]).replace(" ", ""))
+    res = check_fold("fold_clip", taps["fold"])
+    del taps
+    t = time.perf_counter()
+    want = Renderer("cpu").render(comp, MIX_W, MIX_H, clear)
+    say("mix", cpu_render_s=f"{time.perf_counter() - t:.1f}")
+    launches = frame_path("mix", "mix", r, comp, (MIX_W, MIX_H), want)
+    return res, launches
+
+
+def fold_timing(root: str, scene: str) -> int:
+    """`--fold-timing DIR`: K3 on one frame's own inputs, with the port of
+    the checkout in DIR."""
+    sys.path.insert(0, os.path.abspath(root))
+    import forma_tpu_torch
+    from forma_tpu_torch import Color, Composition, Renderer
+    from forma_tpu_torch.demos import scenes
+    from forma_tpu_torch.ops import fold_kernel as fk
+
+    comp = Composition()
+    build = {"paris": "paris30k", "styled": "paris30k_styled"}[scene]
+    getattr(scenes, build)(comp, PARIS_W, PARIS_H)
+    taps = {}
+    Renderer(torch.device("cuda", 0)).render_device(
+        comp, PARIS_W, PARIS_H, Color(1.0, 1.0, 1.0, 1.0), taps=taps)
+    args = taps["fold"]
+    fn = lambda: fk.paint_fold(*args)  # noqa: E731
+    say("fold-timing", port=os.path.dirname(forma_tpu_torch.__file__), scene=scene,
+        card=repr(gpu_record()),
+        ms=f"{time_ms(fn):.4f}", ms_sync=f"{time_ms_sync(fn):.4f}",
+        host_us=f"{host_us(fn):.1f}")
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--fold-timing", metavar="DIR",
+                    help="time K3 alone with the port of the checkout in DIR")
+    ap.add_argument("--scene", choices=("paris", "styled"), default="paris",
+                    help="the frame whose K3 inputs --fold-timing uses")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a CUDA card",
               file=sys.stderr)
         return 2
+    if opts.fold_timing:
+        return fold_timing(opts.fold_timing, opts.scene)
     sys.path.insert(0, REPO)
     from forma_tpu_torch import Color, Composition, Renderer
     from forma_tpu_torch.demos import scenes
@@ -338,7 +562,15 @@ def main() -> int:
     r = renderers["fused"]
     ref, _ = r.render_device(paris, PARIS_W, PARIS_H, clear, plain=True)
     ref = ref[:PARIS_H, :PARIS_W].cpu().numpy()
-    launches = {path: paris_path(rr, paris, ref) for path, rr in renderers.items()}
+    launches = {
+        path: frame_path("paris", path, rr, paris, (PARIS_W, PARIS_H), ref)
+        for path, rr in renderers.items()
+    }
+    del renderers, paris, ref
+
+    # 6. paris-30k-styled; 7. the styled mix
+    kres["fold_styled"], launches["styled"] = paris_styled(device)
+    kres["fold_clip"], launches["mix"] = styled_mix(device)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

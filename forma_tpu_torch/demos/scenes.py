@@ -1,8 +1,9 @@
 """Procedural demo/benchmark scenes.
 
 A copy of the parts of `forma_tpu/demos/scenes.py` that the port's smoke
-test and tests use: `circles` and `paris30k`, with the same seeds, so both
-packages build the same scenes.
+test and tests use: `circles`, `paris30k` and `paris30k_styled`, with the
+same seeds, so both packages build the same scenes; and `styled_mix`, the
+port's own seeded mix of every paint feature but textures.
 
 `circles` mirrors the reference demo (`demo/src/demos/circles.rs`): N random
 translucent circles built from rational quads.
@@ -22,7 +23,9 @@ import numpy as np
 from ..composition import Composition, Order
 from ..math import Point
 from ..path import Path, PathBuilder
-from ..styling import Color, Fill, Func, Props, Style
+from ..styling import (
+    BlendMode, Color, Fill, FillRule, Func, Gradient, GradientType, Props, Style,
+)
 
 _WEIGHT = math.sqrt(2.0) / 2.0
 
@@ -150,3 +153,175 @@ def paris30k(
         composition.get_mut_or_insert_default(Order(order)).insert(path).set_props(
             Props(func=Func.Draw(Style(fill=Fill.Solid(color))))
         )
+
+
+def paris30k_styled(
+    composition: Composition,
+    width: int = 1920,
+    height: int = 1080,
+    paths: int = 30000,
+    seed: int = 30,
+):
+    """The gradient + blend-mode variant of `paris30k`
+    (`forma_tpu/demos/scenes.py:51-167`).
+
+    Same geometry mix and seed as `paris30k`, but: buildings fill with
+    per-building linear gradients (facade shading), parks with radial
+    gradients, and roads draw translucent white with BlendMode.Screen.
+    """
+    rng = np.random.default_rng(seed)
+
+    composition.get_mut_or_insert_default(Order(0)).insert(
+        _polygon([0, 0, width, width], [0, height, height, 0])
+    ).set_props(
+        Props(func=Func.Draw(Style(fill=Fill.Solid(Color(0.93, 0.91, 0.88, 1.0)))))
+    )
+
+    order = 1
+    n_buildings = int(paths * 0.7)
+    n_roads = int(paths * 0.2)
+    n_parks = paths - n_buildings - n_roads - 1
+
+    # Buildings: rotated rectangles, linear-gradient facades.
+    cx = rng.uniform(0, width, n_buildings)
+    cy = rng.uniform(0, height, n_buildings)
+    w = rng.uniform(3, 14, n_buildings)
+    h = rng.uniform(3, 14, n_buildings)
+    ang = rng.uniform(0, math.pi, n_buildings)
+    ca, sa = np.cos(ang), np.sin(ang)
+    shade = rng.uniform(0.55, 0.8, n_buildings)
+    for i in range(n_buildings):
+        dx = [-w[i], -w[i], w[i], w[i]]
+        dy = [-h[i], h[i], h[i], -h[i]]
+        xs = [cx[i] + ca[i] * a - sa[i] * b for a, b in zip(dx, dy)]
+        ys = [cy[i] + sa[i] * a + ca[i] * b for a, b in zip(dx, dy)]
+        s = float(shade[i])
+        g = Gradient(
+            GradientType.Linear,
+            Point(float(min(xs)), float(min(ys))),
+            Point(float(max(xs)), float(max(ys))),
+            (
+                (Color(s, s * 0.95, s * 0.9, 1.0), 0.0),
+                (Color(s * 0.75, s * 0.72, s * 0.7, 1.0), 1.0),
+            ),
+        )
+        composition.get_mut_or_insert_default(Order(order)).insert(
+            _polygon(xs, ys)
+        ).set_props(Props(func=Func.Draw(Style(fill=Fill.Gradient(g)))))
+        order += 1
+
+    # Roads: long thin quads, Screen-blended.
+    x0 = rng.uniform(-100, width + 100, n_roads)
+    y0 = rng.uniform(-100, height + 100, n_roads)
+    ang = rng.uniform(0, math.pi, n_roads)
+    ln = rng.uniform(100, 600, n_roads)
+    wd = rng.uniform(1.0, 4.0, n_roads)
+    for i in range(n_roads):
+        dx, dy = math.cos(ang[i]), math.sin(ang[i])
+        nx, ny = -dy * wd[i], dx * wd[i]
+        xs = [x0[i] + nx, x0[i] - nx, x0[i] + dx * ln[i] - nx, x0[i] + dx * ln[i] + nx]
+        ys = [y0[i] + ny, y0[i] - ny, y0[i] + dy * ln[i] - ny, y0[i] + dy * ln[i] + ny]
+        composition.get_mut_or_insert_default(Order(order)).insert(
+            _polygon(xs, ys)
+        ).set_props(
+            Props(
+                func=Func.Draw(
+                    Style(
+                        fill=Fill.Solid(Color(0.9, 0.9, 0.85, 0.9)),
+                        blend_mode=BlendMode.Screen,
+                    )
+                )
+            )
+        )
+        order += 1
+
+    # Parks: rounded blobs, radial gradients.
+    cx = rng.uniform(0, width, n_parks)
+    cy = rng.uniform(0, height, n_parks)
+    r = rng.uniform(8, 40, n_parks)
+    for i in range(n_parks):
+        b = PathBuilder().move_to(Point(float(cx[i] + r[i]), float(cy[i])))
+        sides = 5
+        for s in range(1, sides + 1):
+            a0 = 2 * math.pi * (s - 0.5) / sides
+            a1 = 2 * math.pi * s / sides
+            b.quad_to(
+                Point(
+                    float(cx[i] + 1.4 * r[i] * math.cos(a0)),
+                    float(cy[i] + 1.4 * r[i] * math.sin(a0)),
+                ),
+                Point(
+                    float(cx[i] + r[i] * math.cos(a1)),
+                    float(cy[i] + r[i] * math.sin(a1)),
+                ),
+            )
+        g = Gradient(
+            GradientType.Radial,
+            Point(float(cx[i]), float(cy[i])),
+            Point(float(cx[i] + r[i]), float(cy[i])),
+            (
+                (Color(0.65, 0.82, 0.58, 0.9), 0.0),
+                (Color(0.45, 0.68, 0.42, 0.85), 1.0),
+            ),
+        )
+        composition.get_mut_or_insert_default(Order(order)).insert(b.build()).set_props(
+            Props(func=Func.Draw(Style(fill=Fill.Gradient(g))))
+        )
+        order += 1
+
+
+def styled_mix(
+    composition: Composition,
+    layers: int = 400,
+    width: int = 512,
+    height: int = 512,
+    seed: int = 7,
+):
+    """A seeded mix of every paint feature but textures: star polygons and
+    quad blobs with both fill rules, solid and linear/radial gradient
+    fills of 2-4 stops, all 16 blend modes (layer i draws with mode
+    i % 16), about 20% clip layers governing the next 1-4 layers, and
+    about a third of the draws clipped."""
+    rng = np.random.default_rng(seed)
+    modes = list(BlendMode)
+
+    def color():
+        return Color(*(float(v) for v in rng.uniform(0.0, 1.0, 3)),
+                     float(rng.uniform(0.3, 1.0)))
+
+    for i in range(layers):
+        cx, cy = (float(v) for v in rng.uniform(0.0, [width, height]))
+        rad = float(rng.uniform(12.0, 90.0))
+        n = int(rng.integers(3, 8))
+        ang = rng.uniform(0.0, 2.0 * math.pi, n)  # unsorted: self-intersects
+        px = cx + rad * np.cos(ang)
+        py = cy + rad * np.sin(ang)
+        if rng.integers(0, 2):
+            path = _polygon(px, py)
+        else:
+            b = PathBuilder().move_to(Point(float(px[0]), float(py[0])))
+            for j in range(1, n + 1):
+                c = (cx + 1.3 * rad * math.cos(ang[j - 1] + 0.4),
+                     cy + 1.3 * rad * math.sin(ang[j - 1] + 0.4))
+                b.quad_to(Point(*(float(v) for v in c)),
+                          Point(float(px[j % n]), float(py[j % n])))
+            path = b.build()
+        fill_rule = FillRule(int(rng.integers(0, 2)))
+        if rng.random() < 0.2:
+            props = Props(fill_rule=fill_rule, func=Func.Clip(int(rng.integers(1, 5))))
+        else:
+            if rng.integers(0, 2):
+                stops = tuple(
+                    (color(), float(s))
+                    for s in np.sort(rng.uniform(0.0, 1.0, int(rng.integers(2, 5))))
+                )
+                kind = GradientType(int(rng.integers(0, 2)))
+                end = (cx + float(rng.uniform(-rad, rad)), cy + float(rng.uniform(-rad, rad)))
+                fill = Fill.Gradient(Gradient(kind, Point(cx, cy), Point(*end), stops))
+            else:
+                fill = Fill.Solid(color())
+            props = Props(fill_rule=fill_rule, func=Func.Draw(Style(
+                fill=fill, blend_mode=modes[i % len(modes)],
+                is_clipped=bool(rng.random() < 0.35),
+            )))
+        composition.get_mut_or_insert_default(Order(i)).insert(path).set_props(props)

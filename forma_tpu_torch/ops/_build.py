@@ -36,7 +36,11 @@ NVCC_FLAGS = (
 
 # Kernel launch counters: each wrapper adds one where it launches its
 # kernel, and nowhere else.
-LAUNCHES = {"expand": 0, "rasterize": 0, "grid": 0, "fold": 0}
+LAUNCHES = {
+    "expand": 0, "rasterize": 0, "grid": 0,
+    # K3, one counter per specialisation (`fold_kernel.variant`)
+    "fold": 0, "fold_styled": 0, "fold_clip": 0,
+}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -44,7 +48,7 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "forma_expand": [_P, _P, _I64, _I64, _P, _P, _P],
     "forma_grid": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
-    "forma_fold": [_P] * 9 + [_I64] * 4 + [_P, _P],
+    "forma_fold": [_P] * 11 + [_I64] * 4 + [_P, _P],
     "forma_rasterize": [_P] * 3 + [_I64] * 8 + [_P, _P, _P],
 }
 

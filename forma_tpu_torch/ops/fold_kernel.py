@@ -1,28 +1,41 @@
-"""K3: the per-tile paint fold (table mode, solid fills, Over blending).
+"""K3: the per-tile paint fold (table mode).
 
-Counterpart of `forma_tpu/ops/paint_pallas.py:90-123,177-483`
-(`style_layout`, `paint_fold_pallas` with `table_mode=True`) and of its
-prep in `forma_tpu/ops/paint.py:144-305` (`_paint_fold_pallas`).  Every
-tile folds its (tile, layer)-sorted paint units bottom to top:
+Counterpart of `forma_tpu/ops/paint_pallas.py:90-174,177-483`
+(`style_layout`, `_gradient_fill`, `paint_fold_pallas`) and of its prep in
+`forma_tpu/ops/paint.py:144-305` (`_paint_fold_pallas`).  Every tile folds
+its (tile, layer)-sorted paint units bottom to top:
 
     coverage = carry + exclusive cover prefix along the pixel row + area,
-               under the nonzero or even-odd rule,
-    then a solid fill, Over-blended into linear f32 RGBA.
+               under the nonzero or even-odd rule;
+    clip state: a clip unit's coverage becomes the tile's clip mask, and
+               the clip range it opens expires past its last layer;
+    fill = the solid colour, or a linear/radial gradient evaluated at the
+           pixel's integer global coordinates;
+    src_a = fill alpha * coverage (* clip mask for clipped draws);
+    the unit's blend mode (one of 16) mixes fill with dst, then Over.
 
 Units come from the per-run tables directly (grid row, carry_in,
 carry_after, run tile x, style row), addressed by `src2_u`.  A unit is
 virtual (a gap tile its layer covers without segments) exactly when its
 run's tile x differs from the unit's own tile x: virtual units take no
-grid and the run's carry_after; real units take carry_in.
+grid and the run's carry_after; real units take carry_in.  Clip frames
+also read each unit's FLAG_UNCLIPPED bit from `virt_u` (the JAX package
+bakes it into an assembled unit matrix instead, `paint.py:260-270`).
 
 The CUDA kernel (`csrc/fold.cu`) runs one block per tile and one thread
-per pixel; the plain version advances all tiles one unit per step.  Both
-use the expression tree of `paint_pallas.py:327-336,404-415` op for op, so
-their f32 results are bit-equal.
+per pixel, in three specialisations: solid/Over (none of the fill, blend
+or clip code), styled (gradients and blend modes) and clip; the plain
+version advances all tiles one unit per step.  Both use the Pallas
+kernel's expression trees op for op, so their f32 results are bit-equal.
+Launches count per
+specialisation: "fold" (solid fills, Over), "fold_styled" (gradients or
+blend modes), "fold_clip" (any frame with clips).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -39,6 +52,7 @@ TW = consts.TILE_WIDTH
 _PDA = consts.PIXEL_DOUBLE_AREA  # 512
 _PDW = consts.PIXEL_DOUBLE_WIDTH  # 32
 _RECIP = 1.0 / _PDA  # exact in f32
+FLAG_UNCLIPPED = 32  # virt_u bit: the draw's governing full clip was dropped
 
 
 class StyleLayout(NamedTuple):
@@ -59,7 +73,9 @@ class StyleLayout(NamedTuple):
 
 
 def style_layout(features, ms: int) -> StyleLayout:
-    """The feature-dependent style-row layout (`paint_pallas.py:104-123`)."""
+    """The feature-dependent style-row layout (`paint_pallas.py:104-123`):
+    fill 4 | fill rule 1 | [blend 1] | [fill type 1] | [func, layer id,
+    clip range end, clipped: 4] | [gradient 6 | stops 5 * ms]."""
     off = 0
     fill, off = off, off + 4
     fr, off = off, off + 1
@@ -81,7 +97,22 @@ def style_layout(features, ms: int) -> StyleLayout:
     )
 
 
-SOLID_WIDTH = 5  # style row of a solid/Over frame: rgba bits + fill rule
+def variant(features) -> str:
+    """The CUDA specialisation (and launch counter) a frame's features
+    select."""
+    if features.has_clip:
+        return "fold_clip"
+    if features.has_gradient or tuple(features.blend_modes) != (0,):
+        return "fold_styled"
+    return "fold"
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_layout(features, ms: int):
+    """(launch counter, style layout, the C entry's layout array: lane
+    offsets and the stop count), once per (features, ms)."""
+    lay = style_layout(features, ms)
+    return variant(features), lay, (ctypes.c_int32 * 11)(*lay[1:], ms)
 
 
 def tile_spans(key_u, u_valid, rows: int, tiles_x: int, k_slots: int):
@@ -100,61 +131,83 @@ def tile_spans(key_u, u_valid, rows: int, tiles_x: int, k_slots: int):
     return ust.to(torch.int32), cnt.to(torch.int32)
 
 
-def paint_fold(ust, cnt, src2_u, grid, carry_in_s, carry_after_s, tx_s,
-               style_s, clear, tiles_x: int):
+def paint_fold(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s, tx_s,
+               style_s, clear, tiles_x: int, features, ms: int):
     """Folds every tile's units; returns linear f32 [T, 4 * 256]
-    (channel-major blocks of 256 pixels, pixel j = (y = j // 16, x = j % 16)).
+    (channel-major blocks of 256 pixels, pixel j = (y = j // 16, x = j % 16),
+    at global pixel (16 * (t % tiles_x) + x, 16 * (t // tiles_x) + y)).
 
-    ust, cnt i32 [T]; src2_u i32 [U] unit -> run; grid i32 [R, 256];
-    carry_in_s, carry_after_s i32 [R, 16]; tx_s i32 [R]; style_s i32
-    [R, 5]; clear f32 [4].  CUDA tensors launch `forma_fold`; CPU tensors
-    take `paint_fold_torch`."""
+    ust, cnt i32 [T]; src2_u i32 [U] unit -> run; virt_u i32 [U] unit
+    flags (read for FLAG_UNCLIPPED by clip frames; None otherwise); grid
+    i32 [R, 256]; carry_in_s, carry_after_s i32 [R, 16]; tx_s i32 [R];
+    style_s i32 [R, style_layout(features, ms).width]; clear f32 [4].
+    CUDA tensors launch `forma_fold`; CPU tensors take `paint_fold_torch`."""
     if not grid.is_cuda:
-        return paint_fold_torch(ust, cnt, src2_u, grid, carry_in_s,
-                                carry_after_s, tx_s, style_s, clear, tiles_x)
+        return paint_fold_torch(ust, cnt, src2_u, virt_u, grid, carry_in_s,
+                                carry_after_s, tx_s, style_s, clear, tiles_x,
+                                features, ms)
+    counter, lay, layout = _launch_layout(features, ms)
     T = ust.shape[0]
     R = grid.shape[0]
     U = src2_u.shape[0]
     _build.check(ust, "ust", torch.int32, (T,))
     _build.check(cnt, "cnt", torch.int32, (T,))
     _build.check(src2_u, "src2_u", torch.int32, (U,))
+    if features.has_clip:
+        _build.check(virt_u, "virt_u", torch.int32, (U,))
     _build.check(grid, "grid", torch.int32, (R, 256))
     _build.check(carry_in_s, "carry_in_s", torch.int32, (R, 16))
     _build.check(carry_after_s, "carry_after_s", torch.int32, (R, 16))
     _build.check(tx_s, "tx_s", torch.int32, (R,))
-    _build.check(style_s, "style_s", torch.int32, (R, SOLID_WIDTH))
+    _build.check(style_s, "style_s", torch.int32, (R, lay.width))
     _build.check(clear, "clear", torch.float32, (4,))
     if U < 1 or R < 1:
         raise ValueError("paint_fold: empty unit or run table")
     out = torch.empty((T, 4 * 256), dtype=torch.float32, device=grid.device)
     if T:
         _build.launch(
-            "forma_fold", "fold",
-            ust.data_ptr(), cnt.data_ptr(), src2_u.data_ptr(), grid.data_ptr(),
+            "forma_fold", counter,
+            ust.data_ptr(), cnt.data_ptr(), src2_u.data_ptr(),
+            virt_u.data_ptr() if features.has_clip else None, grid.data_ptr(),
             carry_in_s.data_ptr(), carry_after_s.data_ptr(), tx_s.data_ptr(),
-            style_s.data_ptr(), clear.data_ptr(), T, tiles_x, R, U,
+            style_s.data_ptr(), clear.data_ptr(), layout, T, tiles_x, R, U,
             out.data_ptr(),
         )
     return out
 
 
-def paint_fold_torch(ust, cnt, src2_u, grid, carry_in_s, carry_after_s, tx_s,
-                     style_s, clear, tiles_x: int):
+def paint_fold_torch(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s,
+                     tx_s, style_s, clear, tiles_x: int, features, ms: int):
     """Plain PyTorch version of `paint_fold`: a loop over k that advances
-    every tile by one unit, with the Pallas kernel's expression tree.
-    Steps past a tile's count multiply coverage by 0, which leaves the
-    pixels bit-identical."""
+    every tile by one unit, with the Pallas kernel's expression trees
+    (`paint_pallas.py:327-415`).  A step past a tile's count leaves its
+    pixels and clip state as they were."""
+    # paint imports this module, so its fill and blend trees load here.
+    from .paint import _blend, _gradient_at
+
+    lay = style_layout(features, ms)
+    has_grad, has_clip = features.has_gradient, features.has_clip
     dev = grid.device
     T = ust.shape[0]
     R = grid.shape[0]
     U = src2_u.shape[0]
-    dst = clear.to(torch.float32)[None, :, None].repeat(T, 1, 256)  # [T, 4, 256]
-    ttx = torch.arange(T, device=dev) % tiles_x
+    f32 = torch.float32
+    dst = [clear[ch].to(f32).expand(T, 256).clone() for ch in range(4)]
+    tile = torch.arange(T, device=dev)
+    ttx = tile % tiles_x
+    if has_grad:
+        j = torch.arange(256, device=dev)
+        xg = (ttx[:, None] * TW + j % TW).to(f32)
+        yg = ((tile // tiles_x)[:, None] * TH + j // TW).to(f32)
+    if has_clip:
+        clipm = torch.zeros((T, 256), dtype=f32, device=dev)
+        clip_last = torch.full((T, 1), -1, dtype=torch.int32, device=dev)
     kmax = int(cnt.max()) if T else 0
     for k in range(kmax):
-        present = (cnt > k).to(torch.float32)[:, None]  # [T, 1]
+        present = (cnt > k)[:, None]  # [T, 1]
         u = torch.clamp(ust.long() + k, max=U - 1)
         r = torch.clamp(src2_u[u].long(), 0, R - 1)
+        st = style_s[r]  # [T, W]
         virt = (tx_s[r].long() != ttx)[:, None]  # [T, 1]
         area, cover = unpack_grid(grid[r])  # [T, 256] each
         c16 = torch.where(virt, carry_after_s[r], carry_in_s[r])
@@ -165,41 +218,77 @@ def paint_fold_torch(ust, cnt, src2_u, grid, carry_in_s, carry_after_s, tx_s,
         ce_exc = (c16[:, :, None] + excl).reshape(T, 256)
 
         da = _PDW * ce_exc + area
-        fr_eo = (style_s[r, 4] != 0)[:, None]
-        nz = torch.clamp(torch.abs(da.to(torch.float32) * _RECIP), 0.0, 1.0)
+        fr_eo = (st[:, lay.fr] != 0)[:, None]
+        nz = torch.clamp(torch.abs(da.to(f32) * _RECIP), 0.0, 1.0)
         folded = _PDA - torch.abs((da & (2 * _PDA - 1)) - _PDA)
-        eo = folded.to(torch.float32) * _RECIP
+        eo = folded.to(f32) * _RECIP
         cov = torch.where(fr_eo, eo, nz)
-        cov = cov * present
+        cov = cov * present.to(f32)
 
-        fill = bits_f32(style_s[r, 0:4])  # [T, 4]
-        src_a = fill[:, 3:4] * cov
-        dst_a = dst[:, 3]
+        if has_clip:
+            func = st[:, lay.func, None]
+            draw = present & (func == 0)
+            layer = st[:, lay.layer, None]
+            cend = st[:, lay.cend, None]
+            is_clip_unit = present & (func == 1)
+            # Clip expiry precedes everything (`painter/mod.rs:302-306`).
+            expired = (clip_last >= 0) & (clip_last < layer) & present
+            clip_last = torch.where(expired, -1, clip_last)
+            new_clip = is_clip_unit & (clip_last < 0)
+            clip_last = torch.where(new_clip, cend, clip_last)
+            clipm = torch.where(is_clip_unit, cov, clipm)
+
+        fill = [bits_f32(st[:, lay.fill + ch, None]) for ch in range(4)]  # [T, 1]
+        if has_grad:
+            gm = bits_f32(st[:, lay.grad : lay.grad + 6])
+            stops = bits_f32(st[:, lay.stops : lay.stops + 5 * ms]).reshape(T, ms, 5)
+            gf = _gradient_at(gm, stops, xg, yg)
+            selg = st[:, lay.ft, None] == 1
+            fill = [torch.where(selg, g, f) for g, f in zip(gf, fill)]
+
+        src_a = fill[3] * cov
+        if has_clip:
+            # FLAG_UNCLIPPED: the draw's governing full clip was dropped.
+            unclip = (virt_u[u] & FLAG_UNCLIPPED) != 0
+            clipped = (st[:, lay.clipped] == 1) & ~unclip
+            active = clip_last >= 0
+            src_a = torch.where(
+                clipped[:, None], torch.where(active, src_a * clipm, 0.0), src_a
+            )
+            src_a = src_a * draw.to(f32)
+
+        blended = fill[:3]
+        if lay.blend >= 0:
+            blended = _blend(st[:, lay.blend, None], features.blend_modes,
+                             dst[0], dst[1], dst[2], fill[0], fill[1], fill[2])
+
+        dst_a = dst[3]
         inv_dst_a = 1.0 - dst_a
         inv_dst_a_src_a = inv_dst_a * src_a
         inv_src_a = 1.0 - src_a
         dst_a_src_a = dst_a * src_a
-        for ch in range(3):
-            f = fill[:, ch : ch + 1]
-            dst[:, ch] = dst[:, ch] * inv_src_a + (
-                f * inv_dst_a_src_a + f * dst_a_src_a
-            )
-        dst[:, 3] = dst_a * inv_src_a + src_a
-    return dst.reshape(T, 4 * 256)
+        new = [
+            dst[ch] * inv_src_a + (fill[ch] * inv_dst_a_src_a + blended[ch] * dst_a_src_a)
+            for ch in range(3)
+        ] + [dst_a * inv_src_a + src_a]
+        dst = [torch.where(present, n, d) for n, d in zip(new, dst)]
+    return torch.cat(dst, dim=1)
 
 
-def fold_tiles(key_u, u_valid, src2_u, grid, carry_in_s, carry_after_s, tx_s,
-               style_s, clear, rows: int, tiles_x: int, k_slots: int,
-               plain: bool = False, taps=None):
+def fold_tiles(key_u, u_valid, src2_u, virt_u, grid, carry_in_s, carry_after_s,
+               tx_s, style_s, clear, rows: int, tiles_x: int, k_slots: int,
+               features, ms: int, plain: bool = False, taps=None):
     """Table-mode prep + fold; returns the frame's tiles as linear f32
     [T, TH, TW, 4] (the counterpart of `paint._paint_fold_pallas` with
     `presorted=True`).  `plain` runs K3's plain PyTorch version on any
-    device; `taps` (a dict) receives K3's inputs."""
+    device; `taps` (a dict) receives K3's inputs under "fold"."""
     ust, cnt = tile_spans(key_u, u_valid, rows, tiles_x, k_slots)
     args = (
-        ust, cnt, src2_u.to(torch.int32).contiguous(), grid.contiguous(),
-        carry_in_s.contiguous(), carry_after_s.contiguous(),
+        ust, cnt, src2_u.to(torch.int32).contiguous(),
+        virt_u.to(torch.int32).contiguous() if features.has_clip else None,
+        grid.contiguous(), carry_in_s.contiguous(), carry_after_s.contiguous(),
         tx_s.contiguous(), style_s.contiguous(), clear.contiguous(), tiles_x,
+        features, ms,
     )
     if taps is not None:
         taps["fold"] = args

@@ -7,8 +7,9 @@ capacity buckets, and returns the packed frame with a small diagnostics
 vector (actual totals vs capacities); the renderer reads both once and
 re-renders with bigger buckets on overflow.
 
-Ported: the packed single-key path (`slot_bits > 0`) of solid/Over
-frames, uncached and uncropped.  The rest raises `NotImplementedError`.
+Ported: the packed single-key path (`slot_bits > 0`), uncached and
+uncropped, for solid and gradient fills, the 16 blend modes and clips.
+Texture frames and the rest raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import consts
 from . import line_setup as _ls
 from . import paint as _paint
 from . import rasterize as _raster
@@ -107,7 +109,10 @@ def _back(
         st["pidx"], st["fill_rule"], st_opaque, st_isclip, st_solid,
         caps.run, tiles_x,
         style_pack=_paint.style_pack_for_fold(
-            features, st["pidx"], st["fill_rule"], st["color"]
+            features,
+            st["orders"], st["pidx"], st["fill_rule"], st["func"],
+            st["clip_n"], st["is_clipped"], st["blend"], st["fill_type"],
+            st["color"], st["grad"], st["stops"],
         ),
         plain=plain, taps=taps,
     )
@@ -122,16 +127,30 @@ def _back(
         )
     )
 
-    # Layer-workbench occlusion pass + ONE unit re-sort.
+    # Layer-workbench passes fused into one keep mask + ONE unit re-sort;
+    # the occlusion analysis may run on the pre-clip-pass list
+    # (`forma_tpu/ops/paint.py:644-650`).
     keep = _paint.cull_units_keep(key_u, virt_u, k_u, u_valid)
+    if features.has_clip:
+        # Trivial-clip elimination (`passes/skip_trivial_clips.rs`).
+        slot_u = torch.clamp(layer_u.long(), max=st["orders"].shape[0] - 1)
+        pi_u = st["pidx"][slot_u].long()
+        id_u = st["orders"][slot_u] & consts.LAYER_LIMIT
+        cend_u = id_u + st["clip_n"][pi_u]
+        clipped_u = st["is_clipped"][pi_u] & (st["func"][pi_u] == 0)
+        keep_c, virt_u = _paint.skip_trivial_clips_keep(
+            key_u, virt_u, u_valid, id_u, cend_u, clipped_u
+        )
+        keep &= keep_c
     key_u, layer_u, src_u, src2_u, virt_u, k_u, u_valid, k_needed = (
         _paint._renumber_units(key_u, layer_u, src_u, src2_u, virt_u, keep)
     )
 
     frame = _paint.paint(
-        key_u, u_valid, src2_u, rd["grid"], rd["carry_in_s"],
+        key_u, u_valid, src2_u, virt_u, rd["grid"], rd["carry_in_s"],
         rd["carry_after_s"], rd["style_s"], rd["tx_s"], clear,
-        rows, tiles_x, caps.k, plain=plain, taps=taps,
+        rows, tiles_x, caps.k, features, st["stops"].shape[1],
+        plain=plain, taps=taps,
     )
     packed = _srgb.pack_srgb(frame, channels)
 

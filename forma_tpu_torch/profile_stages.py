@@ -1,10 +1,11 @@
 """Where the time of a paris-30k frame goes on the card, stage by stage.
 
-    python -m forma_tpu_torch.profile_stages [--frames 3]
+    python -m forma_tpu_torch.profile_stages [--scene paris|styled] [--frames 3]
 
-Renders paris-30k at 1920x1080 (`demos.scenes.paris30k`) through
-`Renderer.render` on each expand path ("fused" and "split") and prints,
-per path:
+Renders paris-30k at 1920x1080 (`--scene paris`, `demos.scenes.paris30k`,
+solid fills; or `--scene styled`, `demos.scenes.paris30k_styled`, gradient
+fills and Screen-blended roads) through `Renderer.render` on each expand
+path ("fused" and "split") and prints, per path:
 
 1. the unfenced frame time (host clock around `render`, which returns the
    frame on the host), median / min / max over `--frames` frames after
@@ -33,6 +34,7 @@ from .demos import scenes
 from .ops import fold_kernel, pipeline, rasterize, runs
 
 W, H = 1920, 1080
+SCENES = {"paris": scenes.paris30k, "styled": scenes.paris30k_styled}
 # (module, attribute, row label, nesting depth) in frame order.
 STAGES = (
     (pipeline._ls, "line_setup", "line_setup", 0),
@@ -119,11 +121,12 @@ def _device_profile(r, comp):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", choices=sorted(SCENES), default="paris")
     ap.add_argument("--frames", type=int, default=3)
     args = ap.parse_args(argv)
     comp = Composition()
-    scenes.paris30k(comp, W, H)
-    print(f"card: {torch.cuda.get_device_name(0)}")
+    SCENES[args.scene](comp, W, H)
+    print(f"card: {torch.cuda.get_device_name(0)}; scene: {args.scene}")
     for expand in rasterize.EXPAND_PATHS:
         r = Renderer(expand=expand)
         _frames(r, comp, 1)  # warm-up: grows the capacity buckets

@@ -208,12 +208,16 @@ def _demo_scene(pkg_scenes, pkg, kind):
     comp = pkg.Composition()
     if kind == "circles":
         pkg_scenes.circles(comp, 64, 256, 256)
+    elif kind == "paris30k_styled":
+        pkg_scenes.paris30k_styled(comp, 256, 256, paths=400)
     else:
         pkg_scenes.paris30k(comp, 256, 256, paths=400)
     return comp
 
 
-@pytest.mark.parametrize("kind", ["circles", "paris30k", "edited-0", "edited-1"])
+@pytest.mark.parametrize(
+    "kind", ["circles", "paris30k", "paris30k_styled", "edited-0", "edited-1"]
+)
 def test_port_builds_scene_as_jax(kind):
     if kind.startswith("edited"):
         seed = int(kind.split("-")[1])
@@ -225,7 +229,7 @@ def test_port_builds_scene_as_jax(kind):
     _assert_same_state(comp, port)
 
 
-@pytest.mark.parametrize("kind", ["circles", "paris30k"])
+@pytest.mark.parametrize("kind", ["circles", "paris30k", "paris30k_styled"])
 def test_port_built_scene_matches_oracle(kind):
     """The chip smoke test's scenes as the port builds them, rendered by
     the port on the CPU, against the numpy oracle on the JAX-built scene

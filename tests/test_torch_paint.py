@@ -1,9 +1,17 @@
-"""K3 of the PyTorch port (`forma_tpu_torch/ops/fold_kernel.py`): the
-table-mode fold's plain PyTorch version against the JAX
+"""K3 of the PyTorch port (`forma_tpu_torch/ops/fold_kernel.py`) and its
+unit passes: the fold's plain PyTorch version against the JAX
 `paint._paint_fold_pallas(..., presorted=True)` in interpret mode, on the
-same per-run arrays and paint units (built by the port's own stages).
-Scenes cover both fill rules, virtual (gap) units, alpha < 1 and a tile
-deeper than 16 units.  Linear f32 pixels within 1e-6, 0 expected."""
+fold inputs the port's own pipeline hands over (table mode for clip-free
+frames; JAX takes its assembly prep for clip frames).  Scenes cover both
+fill rules, virtual (gap) units, alpha < 1, a tile deeper than 16 units,
+linear and radial gradients, every non-Over blend mode, clip masks with
+expiry and random mixed scenes.  Linear f32 pixels within 1e-6 (0
+expected), measured at most 2.4e-7; a random scene with ColorBurn over
+gradient fills within 1e-5 (measured 1.4e-6): XLA:CPU rounds a gradient
+or blend chain an ulp apart (contraction into FMA) and ColorBurn's
+`(1 - d) / s` by a small source channel magnifies it.
+`style_pack_for_fold` and `skip_trivial_clips_keep` are held bit-equal to
+JAX's."""
 
 import numpy as np
 import pytest
@@ -11,13 +19,19 @@ import torch
 
 import jax.numpy as jnp
 
-from forma_tpu import Color, Composition, Fill, Func, Order, PathBuilder, Point, Props, Style
+from forma_tpu import (
+    BlendMode, Color, Composition, Fill, Func, GradientBuilder, Order, PathBuilder,
+    Point, Props, Style,
+)
 from forma_tpu.ops import paint as jpaint
-from forma_tpu.styling import FillRule
+from forma_tpu.styling import FillRule, GradientType
 from forma_tpu_torch import Renderer
 from forma_tpu_torch.convert import composition_from_jax
-from forma_tpu_torch.ops import line_setup, paint, pipeline, rasterize, runs
-from forma_tpu_torch.ops.fold_kernel import fold_tiles, paint_fold, paint_fold_torch, tile_spans
+from forma_tpu_torch.ops import paint
+from forma_tpu_torch.ops.fold_kernel import (
+    fold_tiles, paint_fold, paint_fold_torch, style_layout, tile_spans,
+)
+from forma_tpu_torch.ops.pipeline import DIAG_K
 
 CLEAR = Color(1.0, 1.0, 1.0, 1.0)
 
@@ -29,9 +43,19 @@ def _rect(x0, y0, x1, y1):
     )
 
 
-def _solid(comp, order, path, rgba, fill_rule=FillRule.NonZero):
+def _draw(comp, order, path, style, fill_rule=FillRule.NonZero):
     comp.get_mut_or_insert_default(Order(order)).insert(path).set_props(
-        Props(fill_rule=fill_rule, func=Func.Draw(Style(fill=Fill.Solid(Color(*rgba)))))
+        Props(fill_rule=fill_rule, func=Func.Draw(style))
+    )
+
+
+def _solid(comp, order, path, rgba, fill_rule=FillRule.NonZero, **style):
+    _draw(comp, order, path, Style(fill=Fill.Solid(Color(*rgba)), **style), fill_rule)
+
+
+def _clip(comp, order, path, n, fill_rule=FillRule.NonZero):
+    comp.get_mut_or_insert_default(Order(order)).insert(path).set_props(
+        Props(fill_rule=fill_rule, func=Func.Clip(n))
     )
 
 
@@ -59,41 +83,121 @@ def _deep_stack(comp):
         _solid(comp, i, _rect(x, y, x + 8, y + 8), rgba)
 
 
-def _fold_inputs(build, w, h):
-    """Runs the port's stages up to the fold (as `pipeline._core` does)."""
+# The scenes of `tests/test_paint_pallas.py:119-275`, the blend-mode scene
+# widened to all 15 non-Over modes.
+
+
+def _gradient_fills(comp):
+    lin = (
+        GradientBuilder(Point(0, 0), Point(64, 64)).color(Color(1, 0, 0, 1))
+        .color(Color(0, 1, 0, 0.8)).color(Color(0, 0, 1, 1)).build()
+    )
+    rad = (
+        GradientBuilder(Point(40, 40), Point(80, 40)).type(GradientType.Radial)
+        .color(Color(1, 1, 0, 0.9)).color(Color(0, 1, 1, 0.3)).build()
+    )
+    _draw(comp, 0, _rect(2, 2, 62, 62), Style(fill=Fill.Gradient(lin)))
+    _draw(comp, 1, _rect(20, 10, 78, 58), Style(fill=Fill.Gradient(rad)))
+    _solid(comp, 2, _rect(30, 30, 50, 50), (0, 0, 0, 0.5))
+
+
+def _blend_modes(comp):
+    _solid(comp, 0, _rect(0, 0, 96, 48), (0.8, 0.3, 0.5, 1))
+    for i, mode in enumerate(list(BlendMode)[1:]):
+        x = 4 + 6 * i
+        _solid(comp, i + 1, _rect(x, 4 + 2 * i, x + 22, 44), (0.2, 0.9, 0.4, 0.7),
+               blend_mode=mode)
+
+
+def _clip_masks(comp):
+    tri = (
+        PathBuilder().move_to(Point(4, 4)).line_to(Point(60, 8))
+        .line_to(Point(30, 60)).build()
+    )
+    _clip(comp, 0, tri, 2)
+    _solid(comp, 1, _rect(0, 0, 40, 40), (1, 0, 0, 0.8), is_clipped=True)
+    _solid(comp, 2, _rect(20, 20, 64, 64), (0, 1, 0, 0.6), is_clipped=True)
+    _solid(comp, 3, _rect(50, 2, 62, 30), (0, 0, 1, 1))
+    circle_ish = (
+        PathBuilder().move_to(Point(10, 44)).quad_to(Point(32, 20), Point(54, 44))
+        .quad_to(Point(32, 62), Point(10, 44)).build()
+    )
+    _clip(comp, 5, circle_ish, 1, FillRule.EvenOdd)
+    _solid(comp, 6, _rect(0, 30, 64, 64), (0.5, 0, 0.5, 0.9), is_clipped=True)
+
+
+def _random_mixed(seed):
+    """`tests/test_paint_pallas.py:249-275` with `textures=False`."""
+    from test_differential import _random_path, _random_style
+
+    def build(comp):
+        rng = np.random.default_rng(seed)
+        order = 0
+        for _ in range(rng.integers(4, 10)):
+            layer = comp.get_mut_or_insert_default(Order(order))
+            layer.insert(_random_path(rng, 96, 64))
+            if rng.integers(0, 5) == 0:
+                props = Props(fill_rule=FillRule(int(rng.integers(0, 2))),
+                              func=Func.Clip(int(rng.integers(1, 3))))
+            else:
+                props = Props(fill_rule=FillRule(int(rng.integers(0, 2))),
+                              func=Func.Draw(_random_style(rng, 96, 64, textures=False)))
+            layer.set_props(props)
+            order += int(rng.integers(1, 3))
+
+    return build
+
+
+def _spy(monkeypatch, module, name):
+    """Records the positional arguments of `module.name` on each call."""
+    seen = []
+    real = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        seen.append(args)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, spy)
+    return seen
+
+
+def _fold_inputs(build, w, h, monkeypatch):
+    """The arguments `paint.paint` hands to `fold_tiles` when the port's
+    own pipeline renders the scene (after one render grew the buckets):
+    (key_u, u_valid, src2_u, virt_u, grid, carry_in_s, carry_after_s,
+    tx_s, style_s, clear, rows, tiles_x, k_slots, features, ms), and the
+    diag vector."""
     jax_comp = Composition()
     build(jax_comp)
     comp = composition_from_jax(jax_comp)
     r = Renderer("cpu")
-    r.render(comp, w, h, CLEAR)  # grows the capacity buckets
-    caps = r._caps
-    rows, tiles_x = -(-h // 16), -(-w // 16)
-    px, py, line_slot, uniq = r._prepare_geometry(comp)
-    st_host, st = r._styles_cache
-    g = r._geom_tables(comp, uniq, st_host.orders)
-    params, slots, lengths, ends = line_setup.line_setup(px, py, line_slot, *g, w, h)
-    slot_bits = pipeline.slot_bits_for(st["orders"].shape[0], rows, tiles_x)
-    kh, kl, pay = rasterize.rasterize_sort(
-        params, slots, lengths, ends, torch.clamp(ends[-1], max=caps.vline),
-        caps.vline, 8, rows, tiles_x, 0, slot_bits=slot_bits,
+    r.render(comp, w, h, CLEAR)
+    seen = _spy(monkeypatch, paint, "fold_tiles")
+    r.render(comp, w, h, CLEAR)
+    return seen[-1], r.last_diag
+
+
+def _jax_fold(args):
+    """JAX's interpret-mode Pallas fold on the same inputs.  On the
+    presorted path src_u == src2_u, and the prep reads neither layer_u nor
+    k_u (zeros here)."""
+    (key_u, u_valid, src2_u, virt_u, grid, ci, ca, tx_s, style_s, clear,
+     rows, tiles_x, k_slots, features, ms) = args
+
+    def j(t, dt):
+        return jnp.asarray(t.numpy().astype(dt))
+
+    zeros = jnp.zeros(key_u.shape, jnp.int32)
+    return np.asarray(
+        jpaint._paint_fold_pallas(
+            j(key_u, np.uint32), zeros, j(src2_u, np.int32), j(src2_u, np.int32),
+            j(virt_u, np.int32), zeros, jnp.asarray(u_valid.numpy()),
+            j(grid, np.int32), j(ci, np.int32), j(ca, np.int32),
+            j(style_s, np.int32), jnp.asarray(clear.numpy()),
+            rows, tiles_x, k_slots, jpaint.Features(*features), ms,
+            tx_s=j(tx_s, np.int32), presorted=True, interpret=True,
+        )
     )
-    run_id, num_runs, new_run = runs.extract_runs(kh, kl)
-    opaque = (st["color"][:, 3] == 1.0) & (st["func"] == 0)
-    rd = runs.run_data(
-        kh, kl, pay, run_id, new_run, torch.clamp(num_runs, max=caps.run),
-        st["pidx"], st["fill_rule"], opaque, st["func"] == 1, st["func"] == 0,
-        caps.run, tiles_x,
-        paint.style_pack_for_fold(st_host.features, st["pidx"], st["fill_rule"], st["color"]),
-    )
-    u = runs.build_units(
-        rd["run_hi"], rd["run_layer"], rd["r_valid"], rd["real_flags"], rd["inv"],
-        rd["key2_s"], rd["tx_s"], rd["gap_flags_s"], rd["span"], rd["cumspan"],
-        torch.clamp(rd["v_total"], max=caps.virt), caps.virt,
-    )
-    keep = paint.cull_units_keep(u[0], u[4], u[5], u[6])
-    u = paint._renumber_units(*u[:5], keep)
-    clear = torch.tensor(CLEAR.to_array(), dtype=torch.float32)
-    return u, rd, clear, rows, tiles_x, caps.k, int(u[7])
 
 
 @pytest.mark.parametrize(
@@ -101,52 +205,114 @@ def _fold_inputs(build, w, h):
     [(_alpha_multi_tile, 64, 48), (_virtual_and_fill_rules, 128, 64), (_deep_stack, 32, 32)],
     ids=["alpha_multi_tile", "virtual_and_fill_rules", "deep_stack"],
 )
-def test_fold_matches_pallas_table_mode(build, w, h):
-    u, rd, clear, rows, tiles_x, k_slots, k_needed = _fold_inputs(build, w, h)
-    key_u, layer_u, src_u, src2_u, virt_u, k_u, u_valid, _ = u
+def test_fold_matches_pallas_table_mode(build, w, h, monkeypatch):
+    args, diag = _fold_inputs(build, w, h, monkeypatch)
+    virt_u, u_valid, features = args[3], args[1], args[13]
+    assert features == paint.Features()
     if build is _deep_stack:
-        assert k_needed > 16
+        assert diag[DIAG_K] > 16
     if build is _virtual_and_fill_rules:
         assert bool(((virt_u & paint.FLAG_VIRTUAL) != 0)[u_valid].any())
 
-    got = fold_tiles(
-        key_u, u_valid, src2_u, rd["grid"], rd["carry_in_s"], rd["carry_after_s"],
-        rd["tx_s"], rd["style_s"], clear, rows, tiles_x, k_slots,
-    ).numpy()
-
-    def j(t, dt):
-        return jnp.asarray(t.numpy().astype(dt))
-
-    want = np.asarray(
-        jpaint._paint_fold_pallas(
-            j(key_u, np.uint32), j(layer_u, np.uint32), j(src_u, np.int32),
-            j(src2_u, np.int32), j(virt_u, np.int32), j(k_u, np.int32),
-            jnp.asarray(u_valid.numpy()), j(rd["grid"], np.int32),
-            j(rd["carry_in_s"], np.int32), j(rd["carry_after_s"], np.int32),
-            j(rd["style_s"], np.int32), jnp.asarray(clear.numpy()),
-            rows, tiles_x, k_slots, jpaint.Features(), 4,
-            tx_s=j(rd["tx_s"], np.int32), presorted=True, interpret=True,
-        )
-    )
+    got = fold_tiles(*args).numpy()
+    want = _jax_fold(args)
+    rows, tiles_x = args[10], args[11]
     assert got.shape == want.shape == (rows * tiles_x, 16, 16, 4)
     assert np.abs(got - want).max() <= 1e-6
     assert (got != CLEAR.to_array()).any()  # something painted
 
 
-def test_fold_cpu_dispatch_and_spans():
+STYLED = [
+    ("gradient_fills", _gradient_fills, 80, 64, 1e-6),
+    ("blend_modes", _blend_modes, 96, 48, 1e-6),
+    ("clip_masks", _clip_masks, 64, 64, 1e-6),
+    ("random_11", _random_mixed(11), 96, 64, 1e-6),
+    ("random_23", _random_mixed(23), 96, 64, 1e-6),
+    ("random_37", _random_mixed(37), 96, 64, 1e-5),
+]
+
+
+@pytest.mark.parametrize("name, build, w, h, tol", STYLED, ids=[s[0] for s in STYLED])
+def test_styled_fold_matches_pallas(name, build, w, h, tol, monkeypatch):
+    """Gradients, blend modes and clips through the plain fold against the
+    JAX kernel in interpret mode (tolerances: module docstring)."""
+    args, _ = _fold_inputs(build, w, h, monkeypatch)
+    features = args[13]
+    if name == "gradient_fills":
+        assert features.has_gradient and not features.has_clip
+    if name == "blend_modes":
+        assert features.blend_modes == tuple(range(16))
+    if name == "clip_masks":
+        assert features.has_clip
+        assert args[8].shape[1] == style_layout(features, args[14]).width == 9
+    got = fold_tiles(*args).numpy()
+    want = _jax_fold(args)
+    assert got.shape == want.shape
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= tol
+
+
+@pytest.mark.parametrize("name, build, w, h, tol", STYLED, ids=[s[0] for s in STYLED])
+def test_style_pack_matches_jax(name, build, w, h, tol):
+    """The feature-dependent style rows, bit for bit, from the same style
+    tables (JAX's per-slot layer id and clip range end included)."""
+    from forma_tpu.ops.styles import StyleMap as JaxStyleMap
+
+    comp = Composition()
+    build(comp)
+    st = JaxStyleMap().build(comp.layers)
+    names = ("orders", "pidx", "fill_rule", "func", "clip_n", "is_clipped", "blend",
+             "fill_type", "color", "grad", "stops")
+    cols = [getattr(st, n) for n in names]
+    want = np.asarray(jpaint.style_pack_for_fold(st.features, *map(jnp.asarray, cols)))
+    features = paint.Features(*st.features)
+    got = paint.style_pack_for_fold(
+        features, *(torch.from_numpy(c.astype(np.int64) if c.dtype == np.uint32 else c)
+                    for c in cols)
+    ).numpy()
+    assert got.dtype == np.int32
+    assert got.shape == want.shape == (len(st.orders), style_layout(features, st.max_stops).width)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("build", [_clip_masks, _random_mixed(46), _random_mixed(57)],
+                         ids=["clip_masks", "random_46", "random_57"])
+def test_skip_trivial_clips_keep_matches_jax(build, monkeypatch):
+    """Same pre-pass units in, the same keep mask and FLAG_UNCLIPPED bits out
+    (seeds 46 and 57 have draws governed by a dropped full clip)."""
+    seen = _spy(monkeypatch, paint, "skip_trivial_clips_keep")
+    comp = Composition()
+    build(comp)
+    Renderer("cpu").render(composition_from_jax(comp), 96, 64, CLEAR)
+    assert seen
+    key_u, virt_u, u_valid, id_u, cend_u, clipped_u = seen[-1]
+    keep, virt = paint.skip_trivial_clips_keep(*seen[-1])
+    jkeep, jvirt = jpaint.skip_trivial_clips_keep(
+        jnp.asarray(key_u.numpy().astype(np.uint32)),
+        jnp.asarray(virt_u.numpy().astype(np.int32)), jnp.asarray(u_valid.numpy()),
+        jnp.asarray(id_u.numpy().astype(np.int32)),
+        jnp.asarray(cend_u.numpy().astype(np.int32)), jnp.asarray(clipped_u.numpy()),
+    )
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep))
+    np.testing.assert_array_equal(virt.numpy(), np.asarray(jvirt))
+    assert (~keep.numpy() & u_valid.numpy()).any()  # the pass dropped something
+
+
+def test_fold_cpu_dispatch_and_spans(monkeypatch):
     """CPU tensors take the plain fold; spans cover every valid unit."""
-    u, rd, clear, rows, tiles_x, k_slots, _ = _fold_inputs(_alpha_multi_tile, 64, 48)
-    key_u, _, _, src2_u, _, _, u_valid, _ = u
+    args, _ = _fold_inputs(_clip_masks, 64, 64, monkeypatch)
+    key_u, u_valid, src2_u, virt_u = args[:4]
+    rows, tiles_x, k_slots, features, ms = args[10:]
     ust, cnt = tile_spans(key_u, u_valid, rows, tiles_x, k_slots)
     assert int(cnt.sum()) == int(u_valid.sum())
-    args = (ust, cnt, src2_u, rd["grid"], rd["carry_in_s"], rd["carry_after_s"],
-            rd["tx_s"], rd["style_s"], clear, tiles_x)
-    assert torch.equal(paint_fold(*args), paint_fold_torch(*args))
+    fargs = (ust, cnt, src2_u, virt_u, *args[4:10], tiles_x, features, ms)
+    assert torch.equal(paint_fold(*fargs), paint_fold_torch(*fargs))
 
 
 def _fold_numpy(ust, cnt, src2, grid, ci, ca, tx_s, style, clear, tiles_x):
-    """The table-mode fold tile by tile in numpy f32, one rounding per op
-    (the Pallas kernel's expression tree, `paint_pallas.py:327-336,404-415`)."""
+    """The solid/Over table-mode fold tile by tile in numpy f32, one
+    rounding per op (the Pallas kernel's expression tree,
+    `paint_pallas.py:327-336,404-415`)."""
     f32 = np.float32
     recip = f32(1.0 / 512)
     out = np.zeros((len(ust), 1024), np.float32)
@@ -176,15 +342,17 @@ def _fold_numpy(ust, cnt, src2, grid, ci, ca, tx_s, style, clear, tiles_x):
     return out
 
 
-def test_fold_is_bit_equal_to_op_by_op_numpy():
+def test_fold_is_bit_equal_to_op_by_op_numpy(monkeypatch):
     """The plain fold rounds exactly like f32 evaluated one op at a time.
     (XLA's CPU build of the interpret-mode Pallas kernel differs from both
     by at most a few ulp on rare pixels, hence the 1e-6 bound above.)"""
-    u, rd, clear, rows, tiles_x, k_slots, _ = _fold_inputs(_deep_stack, 32, 32)
-    key_u, _, _, src2_u, _, _, u_valid, _ = u
+    args, _ = _fold_inputs(_deep_stack, 32, 32, monkeypatch)
+    key_u, u_valid, src2_u = args[:3]
+    grid, ci, ca, tx_s, style_s, clear = args[4:10]
+    rows, tiles_x, k_slots, features, ms = args[10:]
     ust, cnt = tile_spans(key_u, u_valid, rows, tiles_x, k_slots)
-    args = (ust, cnt, src2_u, rd["grid"], rd["carry_in_s"], rd["carry_after_s"],
-            rd["tx_s"], rd["style_s"], clear)
-    got = paint_fold_torch(*args, tiles_x).numpy()
-    want = _fold_numpy(*(a.numpy() for a in args), tiles_x)
+    got = paint_fold_torch(ust, cnt, src2_u, None, grid, ci, ca, tx_s, style_s, clear,
+                           tiles_x, features, ms).numpy()
+    want = _fold_numpy(*(a.numpy() for a in (ust, cnt, src2_u, grid, ci, ca, tx_s,
+                                             style_s, clear)), tiles_x)
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

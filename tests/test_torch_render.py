@@ -3,9 +3,12 @@ on the CPU (every kernel's plain PyTorch version) against the numpy
 oracle and the JAX `Renderer.render`.  Scenes are built in `forma_tpu`
 (for JAX and the oracle) and handed to the port through
 `convert.composition_from_jax`.  Max channel diff <= 1/255, the bar for a
-device backend; the diagnostics vector must equal JAX's.  Also: the port
-imports no JAX, un-ported features raise, `convert` carries the JAX
-package's frame state across, and no kernel launches on the CPU."""
+device backend (the HSL blend modes <= 5/255, random gradient/blend/clip
+scenes <= 2/255: the JAX package's own bars, `tests/test_differential.py:
+127`); the diagnostics vector must equal JAX's.  Every e2e scene but the
+texture one renders.  Also: the port imports no JAX, texture frames raise,
+`convert` carries the JAX package's frame state across, and no kernel
+launches on the CPU."""
 
 import subprocess
 import sys
@@ -16,8 +19,8 @@ import torch
 
 from e2e_scenes import all_scenes
 from forma_tpu import (
-    AffineTransform, BlendMode, Color, Composition, Fill, FillRule, Func,
-    GradientBuilder, Order, PathBuilder, Point, Props, Style,
+    AffineTransform, Color, Composition, Fill, FillRule, Func, Order,
+    PathBuilder, Point, Props, Style,
 )
 from forma_tpu.backend_numpy import render as oracle_render
 from forma_tpu.demos import scenes
@@ -79,6 +82,28 @@ def test_solid_e2e_scene_matches_oracle(name):
     assert _max_diff(got, want) <= 1
 
 
+STYLED_E2E = [n for n, _ in all_scenes() if n not in SOLID_E2E and "texture" not in n]
+HSL_MODES = ("Hue", "Saturation", "Color", "Luminosity")
+
+
+@pytest.mark.parametrize("name", STYLED_E2E)
+def test_styled_e2e_scene_matches_oracle(name):
+    """The gradient, blend-mode and clipping e2e scenes."""
+    build = dict(all_scenes())[name]
+    comp = Composition()
+    build(comp)
+    r = Renderer("cpu")
+    got = r.render(composition_from_jax(comp), 64, 64, Color(1.0, 1.0, 1.0, 0.0))
+    assert r._styles_cache[0].features != Features() or "Over" in name
+    want = oracle_render(comp, 64, 64, clear_color=Color(1.0, 1.0, 1.0, 0.0))
+    bar = 5 if any(f"__{m}__" in name for m in HSL_MODES) else 1
+    assert _max_diff(got, want) <= bar
+
+
+def test_styled_e2e_scene_count():
+    assert len(SOLID_E2E) + len(STYLED_E2E) == len(list(all_scenes())) - 1 == 31
+
+
 def _random_path(rng, w, h):
     p = PathBuilder()
     n = int(rng.integers(2, 6))
@@ -125,6 +150,67 @@ def test_random_solid_scene_matches_oracle(seed, size, layers):
     assert _max_diff(got, want) <= 1
 
 
+def _random_styled_scene(seed, w=64, h=64):
+    """`tests/test_differential.py:100-120` with `textures=False` and up to
+    11 layers, a quarter of them clips."""
+    from test_differential import _random_path as path, _random_style
+
+    rng = np.random.default_rng(seed)
+    comp = Composition()
+    order = 0
+    for _ in range(rng.integers(2, 12)):
+        layer = comp.get_mut_or_insert_default(Order(order))
+        layer.insert(path(rng, w, h))
+        if rng.integers(0, 4) == 0:
+            props = Props(fill_rule=FillRule(int(rng.integers(0, 2))),
+                          func=Func.Clip(int(rng.integers(1, 3))))
+        else:
+            props = Props(fill_rule=FillRule(int(rng.integers(0, 2))),
+                          func=Func.Draw(_random_style(rng, w, h, textures=False)))
+        layer.set_props(props)
+        order += int(rng.integers(1, 3))
+    clear = Color(*[float(v) for v in rng.uniform(0, 1, 4)])
+    return comp, clear
+
+
+# Seeds 4, 13 and 22 are left out here: on them the JAX package's own frame
+# is 3, 45 and 7/255 from the oracle.  The port is held to JAX's Renderer on
+# those seeds (test_styled_scene_matches_jax), so a fault of the port there
+# still shows.
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 5, 6])
+def test_random_styled_scene_matches_oracle(seed):
+    comp, clear = _random_styled_scene(seed)
+    r = Renderer("cpu")
+    got = r.render(composition_from_jax(comp), 64, 64, clear)
+    assert r._styles_cache[0].features.has_clip
+    assert _max_diff(got, oracle_render(comp, 64, 64, clear_color=clear)) <= 2
+
+
+@pytest.mark.parametrize(
+    "name", ["tests__radial_gradient__cpu", "tests__blend_modes__Hue__cpu",
+             "tests__clipping__cpu", "random_4", "random_13", "random_22"],
+)
+def test_styled_scene_matches_jax(name):
+    """Same frames and diag vector as the JAX Renderer: three e2e scenes,
+    and the random scenes (`random_<seed>`) where JAX differs from the
+    oracle."""
+    from forma_tpu.ops import pipeline as jpipe
+    from forma_tpu.renderer import Renderer as JaxRenderer
+
+    if name.startswith("random_"):
+        comp, clear = _random_styled_scene(int(name.split("_")[1]))
+    else:
+        comp, clear = Composition(), Color(1.0, 1.0, 1.0, 0.0)
+        dict(all_scenes())[name](comp)
+    r = Renderer("cpu")
+    got = r.render(composition_from_jax(comp), 64, 64, clear)
+    jr = JaxRenderer()
+    jr._caps = jpipe.Caps(*r._caps)
+    want = jr.render(comp, 64, 64, clear)
+    assert _max_diff(got, want) <= 1
+    np.testing.assert_array_equal(r.last_diag, np.asarray(jr.last_diag))
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys, forma_tpu_torch, forma_tpu_torch.convert, "
@@ -134,30 +220,21 @@ def test_import_leaves_jax_out():
     subprocess.run([sys.executable, "-c", code], check=True)
 
 
-def _gradient_scene(comp):
-    g = GradientBuilder(Point(0, 0), Point(64, 0)).color(Color(1, 0, 0, 1)).color(
-        Color(0, 0, 1, 1)).build()
+def _texture_scene(comp):
+    from forma_tpu import AffineTransform as T, Image, Texture
+
+    image = Image.from_srgba([[255, 0, 0, 255]] * 4, 2, 2)
+    tex = Texture(transform=T(ux=0.1, uy=0.0, vx=0.0, vy=0.1, tx=0.0, ty=0.0), image=image)
     comp.get_mut_or_insert_default(Order(0)).insert(_random_path(
-        np.random.default_rng(0), 64, 64)).set_props(
-        Props(func=Func.Draw(Style(fill=Fill.Gradient(g)))))
+        np.random.default_rng(2), 64, 64)).set_props(
+        Props(func=Func.Draw(Style(fill=Fill.Texture(tex)))))
 
 
-def _blend_scene(comp):
-    comp.get_mut_or_insert_default(Order(0)).insert(_random_path(
-        np.random.default_rng(1), 64, 64)).set_props(Props(func=Func.Draw(Style(
-            fill=Fill.Solid(Color(1, 0, 0, 1)), blend_mode=BlendMode.Multiply))))
-
-
-def _clip_scene(comp):
-    comp.get_mut_or_insert_default(Order(0)).insert(_random_path(
-        np.random.default_rng(2), 64, 64)).set_props(Props(func=Func.Clip(1)))
-
-
-@pytest.mark.parametrize("build", [_gradient_scene, _blend_scene, _clip_scene])
+@pytest.mark.parametrize("build", [_texture_scene])
 def test_unported_features_raise(build):
     comp = Composition()
     build(comp)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, item 9.4"):
         Renderer("cpu").render(composition_from_jax(comp), 64, 64, CLEAR)
 
 
@@ -207,4 +284,8 @@ def test_no_kernel_launches_on_cpu():
     comp = composition_from_jax(_circles(8))
     for expand in ("fused", "split"):
         Renderer("cpu", expand=expand).render(comp, 64, 64, CLEAR)
-    assert _build.LAUNCHES == {"expand": 0, "rasterize": 0, "grid": 0, "fold": 0}
+    comp, clear = _random_styled_scene(0)
+    Renderer("cpu").render(composition_from_jax(comp), 64, 64, clear)
+    assert set(_build.LAUNCHES) == {
+        "expand", "rasterize", "grid", "fold", "fold_styled", "fold_clip"}
+    assert not any(_build.LAUNCHES.values())
