@@ -41,18 +41,34 @@ failure exits non-zero:
    gradients, all 16 blend modes, clips and clipped draws, both fill
    rules): K3's clip specialisation on its inputs against its plain
    version, then the frame through `Renderer.render` (counters read)
-   against the port's CPU render (max channel diff <= 1).
+   against the port's CPU render (max channel diff <= 1);
+8. paris-30k-textured at 1920x1080 (21,000 buildings filled from an atlas
+   of 8 shared 32x32 images, roads and parks solid): K3's textured
+   specialisation on the frame's own inputs against its plain version, as
+   in phase 3; then the frame as in phase 6;
+9. the textured mix (`scenes.textured_mix`: 300 layers at 512x512, most
+   of them textured through rotated transforms, with gradients, blend
+   modes, clips and clipped textured draws): K3's clip specialisation with
+   textures against its plain version, then the frame against the port's
+   CPU render, as in phase 7;
+10. K5, the texture-fold probe (`forma_tpu_torch.probes.texture_fold`):
+   its three modes against the plain version (bit-equal) at 8 blocks of
+   32 tiles and 44 steps; then its entry point's measurement at the
+   probe's paris shape (255 blocks), counters reset and read, each mode
+   checked and timed there as in phase 3, and the probe's window gather.
 
 The last three lines are a JSON object with per-kernel results (K3 once
-per specialisation: solid, styled, clip), the card's name and power limit,
-and the status line `{"ok": true, "device": {...}}`.
+per specialisation: solid, styled, textured, clip; K5 in its atlas_rowsel
+mode), the card's name and power limit, and the status line
+`{"ok": true, "device": {...}}`.
 
-    python3 chip_smoke.py --fold-timing DIR [--scene paris|styled]
+    python3 chip_smoke.py --fold-timing DIR [--scene paris|styled|textured]
 
-times K3 alone instead, on one paris-30k (or paris-30k-styled) frame's own
-inputs, with the port of the checkout in DIR (for example a parent commit
-unpacked with `git archive`), in both ways above and with the wrapper's host
-microseconds: run it for two trees in one call to compare them.
+times K3 alone instead, on one paris-30k (or paris-30k-styled, or
+paris-30k-textured) frame's own inputs, with the port of the checkout in
+DIR (for example a parent commit unpacked with `git archive`), in both ways
+above and with the wrapper's host microseconds: run it for two trees in one
+call to compare them.
 """
 
 from __future__ import annotations
@@ -73,8 +89,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 K3 = "forma_tpu/ops/paint_pallas.py:468"
 KERNELS = (
     # name (= launch counter), source, TPU kernel it replaces, the run whose
-    # launches count for it: an expand path of paris-30k, the styled frame
-    # or the styled mix
+    # launches count for it: an expand path of paris-30k, the styled or
+    # textured frame, the styled mix, or the probe's entry point
     ("expand", "forma_tpu_torch/csrc/expand.cu",
      "forma_tpu/ops/expand_pallas.py:175", "split"),
     ("rasterize", "forma_tpu_torch/csrc/rasterize.cu",
@@ -83,16 +99,23 @@ KERNELS = (
      "forma_tpu/ops/grid_pallas.py:314", "fused"),
     ("fold", "forma_tpu_torch/csrc/fold.cu", K3, "fused"),
     ("fold_styled", "forma_tpu_torch/csrc/fold.cu", K3, "styled"),
+    ("fold_tex", "forma_tpu_torch/csrc/fold.cu", K3, "textured"),
     ("fold_clip", "forma_tpu_torch/csrc/fold.cu", K3, "mix"),
+    ("texture_probe", "forma_tpu_torch/csrc/texture_probe.cu",
+     "tools/texture_fold_probe.py:157", "probe"),
 )
 PATHS = {
     "fused": ("rasterize", "grid", "fold"),
     "split": ("expand", "grid", "fold"),
     "styled": ("rasterize", "grid", "fold_styled"),
     "mix": ("rasterize", "grid", "fold_clip"),
+    "textured": ("rasterize", "grid", "fold_tex"),
+    "texmix": ("rasterize", "grid", "fold_clip"),
 }
 PARIS_W, PARIS_H = 1920, 1080
 MIX_W, MIX_H = 512, 512
+PARIS_SCENES = {"paris": "paris30k", "styled": "paris30k_styled",
+                "textured": "paris30k_textured"}
 
 # H100 SXM peaks (NVIDIA's data sheet, at the full 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -103,13 +126,20 @@ F32_OPS_PER_S = 67e12
 # pixel: coverage 7 and Over 22; a gradient fill 16 for t (linear and
 # radial, select), one compare per stop and 25 to interpolate the one
 # segment the pixel falls in (the work the stop chain needs; the select
-# tree computes every segment); a clip frame 2 (clip-mask and draw
-# multiplies); a blend mode its count below (three channels).  K1 and K2
-# do no float arithmetic.
+# tree computes every segment); a texture fill 18 (two affine coordinates
+# of 4, min, trunc and max on each, 4 float -> int conversions); a clip
+# frame 2 (clip-mask and draw multiplies); a blend mode its count below
+# (three channels).  K1 and K2 do no float arithmetic.
+# csrc/texture_probe.cu per pixel and step: 9 for the coordinates (tx + k
+# included), 2 more for the base mode's texel or 6 (trunc and a 2-sided
+# clip per axis) for a sampling mode's, 4 to accumulate; per pixel once, 6
+# for the parameters.
 K4_F32_OPS_PER_SEGMENT = 198
 K3_F32_OPS_PER_UNIT_PIXEL = 29
 K3_GRAD_OPS, K3_STOP_OPS, K3_SEGMENT_OPS, K3_CLIP_OPS = 16, 1, 25, 2
+K3_TEX_OPS = 18
 K3_BLEND_OPS = (0, 3, 9, 21, 3, 3, 12, 15, 21, 51, 6, 12, 84, 84, 59, 59)
+K5_COORD_OPS, K5_BASE_OPS, K5_SAMPLE_OPS, K5_ACC_OPS, K5_PRM_OPS = 9, 2, 6, 4, 6
 
 def say(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
@@ -222,15 +252,23 @@ def fold_bytes(args, out) -> int:
     spans; src2 (and virt_u in a clip frame) of each folded unit; the grid
     row and carry_in row of each run a real unit folds; the carry_after row
     of each run a virtual unit folds; tx_s and the style row of each run
-    folded; clear; the output."""
+    folded (a texture frame's row holds its 10 texture lanes); clear; the
+    atlas of a texture frame, once; the output."""
     n_units, r, virt = fold_units(args)
-    ust, virt_u, style_s = args[0], args[3], args[8]
+    ust, virt_u, style_s, atlas = args[0], args[3], args[8], args[13]
     real_runs = torch.unique(r[~virt]).numel()
     virt_runs = torch.unique(r[virt]).numel()
     runs = torch.unique(r).numel()
     words = (2 * ust.numel() + n_units * (1 if virt_u is None else 2)
              + real_runs * (256 + 16) + virt_runs * 16 + runs * (1 + style_s.shape[1]) + 4)
-    return 4 * words + tensor_bytes(out)
+    return 4 * words + tensor_bytes((atlas,)) + tensor_bytes(out)
+
+
+def probe_bytes(args, out) -> int:
+    """Bytes K5 must move: info, the f32 atlas once (not read by the base
+    mode), the output."""
+    info, atlas, mode = args[:3]
+    return tensor_bytes((info,) if mode == "base" else (info, atlas)) + tensor_bytes(out)
 
 
 def fold_unit_ops(args) -> torch.Tensor:
@@ -243,9 +281,11 @@ def fold_unit_ops(args) -> torch.Tensor:
     st = style_s[fold_units(args)[1]]
     ops = torch.full((st.shape[0],), K3_F32_OPS_PER_UNIT_PIXEL, dtype=torch.int64,
                      device=st.device)
-    if lay.ft >= 0:
+    if lay.grad >= 0:
         grad = K3_GRAD_OPS + K3_STOP_OPS * ms + K3_SEGMENT_OPS
         ops += torch.where(st[:, lay.ft] == 1, grad, 0)
+    if lay.tex >= 0:
+        ops += torch.where(st[:, lay.ft] == 2, K3_TEX_OPS, 0)
     if lay.blend >= 0:
         table = torch.tensor(K3_BLEND_OPS, dtype=torch.int64, device=st.device)
         ops += table[st[:, lay.blend].long().clamp(0, 15)]
@@ -263,6 +303,11 @@ def f32_ops(name: str, args) -> int:
         return K4_F32_OPS_PER_SEGMENT * int(params[:, 15].double().sum())
     if name.startswith("fold"):
         return 256 * int(fold_unit_ops(args).sum())
+    if name == "texture_probe":
+        info, _, mode, kmax = args
+        texel = K5_BASE_OPS if mode == "base" else K5_SAMPLE_OPS
+        per_step = K5_COORD_OPS + texel + K5_ACC_OPS
+        return 256 * info.shape[0] * (kmax * per_step + K5_PRM_OPS)
     return 0
 
 
@@ -302,14 +347,16 @@ def check_kernel(name: str, kern, plain, args) -> dict:
     plain_ms = time_ms(lambda: plain(*args), batches=3, per_batch=1)
     table_bytes = tensor_bytes(args) + tensor_bytes(got)
     port_bytes = tensor_bytes(args, True) + tensor_bytes(got, True)
-    nbytes = fold_bytes(args, got) if name.startswith("fold") else table_bytes
+    nbytes = (fold_bytes(args, got) if name.startswith("fold")
+              else probe_bytes(args, got) if name == "texture_probe" else table_bytes)
     ops = f32_ops(name, args)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_OPS_PER_S * 1e3
     lib = library_call(name, args)
     library_ms = time_ms(lib[1]) if lib else None
     shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
-    say("kernel", name=name, max_abs_err=err, ms=f"{ms:.4f}", ms_sync=f"{ms_sync:.4f}",
+    mode = {"mode": args[2]} if name == "texture_probe" else {}
+    say("kernel", name=name, **mode, max_abs_err=err, ms=f"{ms:.4f}", ms_sync=f"{ms_sync:.4f}",
         host_us=f"{wrapper_us:.1f}", plain_ms=f"{plain_ms:.4f}", bytes=nbytes,
         table_bytes=table_bytes, port_layout_bytes=port_bytes, f32_ops=ops,
         bound_ms=f"{max(bytes_ms, ops_ms):.4f}",
@@ -390,7 +437,7 @@ def circles_vs_cpu(device) -> None:
 
 
 def frame_path(label: str, path: str, r, comp, size, ref, n_timed: int = 5) -> dict:
-    """Phases 5-7 for one path: counters reset, warm-up + timed frames
+    """Phases 5-9 for one path: counters reset, warm-up + timed frames
     through Renderer.render, counters read; the frame against `ref`."""
     from forma_tpu_torch import Color
     from forma_tpu_torch.ops import _build
@@ -424,53 +471,93 @@ def frame_path(label: str, path: str, r, comp, size, ref, n_timed: int = 5) -> d
     return launches
 
 
-def paris_styled(device) -> tuple:
-    """Phase 6: paris-30k-styled at 1920x1080; returns (K3 styled numbers,
-    launches)."""
+def paris_variant(device, label: str, counter: str) -> tuple:
+    """Phases 6 and 8: a variant of paris-30k at 1920x1080 (`label` a key
+    of PARIS_SCENES and of PATHS): K3's specialisation `counter` on the
+    frame's own inputs against its plain version, then the frame through
+    `Renderer.render` against the plain path on the card; returns (K3
+    numbers, launches)."""
     from forma_tpu_torch import Color, Composition, Renderer
     from forma_tpu_torch.demos import scenes
 
     t = time.perf_counter()
     comp = Composition()
-    scenes.paris30k_styled(comp, PARIS_W, PARIS_H)
-    say("styled", scene_build_s=f"{time.perf_counter() - t:.1f}", layers=len(comp.layers))
+    getattr(scenes, PARIS_SCENES[label])(comp, PARIS_W, PARIS_H)
+    say(label, scene_build_s=f"{time.perf_counter() - t:.1f}", layers=len(comp.layers))
     clear = Color(1.0, 1.0, 1.0, 1.0)
     r = Renderer(device)
     taps = {}
     t = time.perf_counter()
     r.render_device(comp, PARIS_W, PARIS_H, clear, taps=taps)
     torch.cuda.synchronize()
-    say("styled", first_frame_s=f"{time.perf_counter() - t:.2f}", caps=tuple(r._caps),
+    say(label, first_frame_s=f"{time.perf_counter() - t:.2f}", caps=tuple(r._caps),
         regrows=r.regrow_count, features=str(taps["fold"][11]).replace(" ", ""))
-    res = check_fold("fold_styled", taps["fold"])
+    res = check_fold(counter, taps["fold"])
     del taps
     ref, _ = r.render_device(comp, PARIS_W, PARIS_H, clear, plain=True)
     ref = ref[:PARIS_H, :PARIS_W].cpu().numpy()
-    launches = frame_path("styled", "styled", r, comp, (PARIS_W, PARIS_H), ref)
+    launches = frame_path(label, label, r, comp, (PARIS_W, PARIS_H), ref)
     return res, launches
 
 
-def styled_mix(device) -> tuple:
-    """Phase 7: the styled mix at 512x512 on the card against the port's
-    CPU render; returns (K3 clip numbers, launches)."""
+def mix_vs_cpu(device, label: str, build) -> tuple:
+    """Phases 7 and 9: a mix at 512x512 (`build(comp)`) on the card: K3's
+    clip specialisation on its inputs against its plain version, then the
+    frame against the port's CPU render; returns (K3 clip numbers,
+    launches)."""
     from forma_tpu_torch import Color, Composition, Renderer
-    from forma_tpu_torch.demos import scenes
 
     comp = Composition()
-    scenes.styled_mix(comp, 400, MIX_W, MIX_H)
+    build(comp)
     clear = Color(1.0, 1.0, 1.0, 1.0)
     r = Renderer(device)
     taps = {}
     r.render_device(comp, MIX_W, MIX_H, clear, taps=taps)
-    say("mix", layers=len(comp.layers), caps=tuple(r._caps),
+    say(label, layers=len(comp.layers), caps=tuple(r._caps),
         features=str(taps["fold"][11]).replace(" ", ""))
     res = check_fold("fold_clip", taps["fold"])
     del taps
     t = time.perf_counter()
     want = Renderer("cpu").render(comp, MIX_W, MIX_H, clear)
-    say("mix", cpu_render_s=f"{time.perf_counter() - t:.1f}")
-    launches = frame_path("mix", "mix", r, comp, (MIX_W, MIX_H), want)
+    say(label, cpu_render_s=f"{time.perf_counter() - t:.1f}")
+    launches = frame_path(label, label, r, comp, (MIX_W, MIX_H), want)
     return res, launches
+
+
+def texture_probe(device) -> tuple:
+    """Phase 10: K5's three modes against the plain version at 8 blocks,
+    then its entry point's measurement at the paris shape with the counters
+    reset and read, each mode checked and timed there; returns (the
+    atlas_rowsel numbers, launches)."""
+    from forma_tpu_torch.ops import _build
+    from forma_tpu_torch.probes import texture_fold as k5
+
+    kmax = 44
+    info, atlas = (t.to(device) for t in k5.probe_inputs(8))
+    for mode in k5.MODES:
+        got = k5.texture_fold(info, atlas, mode, kmax)
+        torch.cuda.synchronize()
+        err = max_abs_err((got,), (k5.texture_fold_torch(info, atlas, mode, kmax),))
+        say("probe", mode=mode, nblk=8, kmax=kmax, max_abs_err=err)
+        if err != 0.0:
+            raise AssertionError(f"texture_probe {mode}: differs from its plain version ({err})")
+    _build.reset_launches()
+    res = k5.measure(255, kmax, device)
+    launches = dict(_build.LAUNCHES)
+    steps = res["tile_steps"]
+    say("probe", nblk=255, kmax=kmax, tile_steps=steps, launches=launches["texture_probe"],
+        **{f"{m}_ms": f"{res[m]:.4f}" for m in k5.MODES},
+        **{f"{m}_marginal_ns_per_tile_step": f"{(res[m] - res['base']) / steps * 1e6:.3f}"
+           for m in k5.MODES[1:]},
+        window_gather_ms=f"{res['window_gather']:.4f}")
+    if launches["texture_probe"] < 1:
+        raise AssertionError("texture_probe was never launched by its entry point")
+    info, atlas = (t.to(device) for t in k5.probe_inputs(255))
+    out = {}
+    for mode in k5.MODES:
+        out[mode] = check_kernel("texture_probe", k5.texture_fold, k5.texture_fold_torch,
+                                 (info, atlas, mode, kmax))
+    return {"mode": "atlas_rowsel", **out["atlas_rowsel"]}, launches
 
 
 def fold_timing(root: str, scene: str) -> int:
@@ -483,8 +570,7 @@ def fold_timing(root: str, scene: str) -> int:
     from forma_tpu_torch.ops import fold_kernel as fk
 
     comp = Composition()
-    build = {"paris": "paris30k", "styled": "paris30k_styled"}[scene]
-    getattr(scenes, build)(comp, PARIS_W, PARIS_H)
+    getattr(scenes, PARIS_SCENES[scene])(comp, PARIS_W, PARIS_H)
     taps = {}
     Renderer(torch.device("cuda", 0)).render_device(
         comp, PARIS_W, PARIS_H, Color(1.0, 1.0, 1.0, 1.0), taps=taps)
@@ -501,7 +587,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--fold-timing", metavar="DIR",
                     help="time K3 alone with the port of the checkout in DIR")
-    ap.add_argument("--scene", choices=("paris", "styled"), default="paris",
+    ap.add_argument("--scene", choices=sorted(PARIS_SCENES), default="paris",
                     help="the frame whose K3 inputs --fold-timing uses")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -569,8 +655,18 @@ def main() -> int:
     del renderers, paris, ref
 
     # 6. paris-30k-styled; 7. the styled mix
-    kres["fold_styled"], launches["styled"] = paris_styled(device)
-    kres["fold_clip"], launches["mix"] = styled_mix(device)
+    kres["fold_styled"], launches["styled"] = paris_variant(device, "styled", "fold_styled")
+    kres["fold_clip"], launches["mix"] = mix_vs_cpu(
+        device, "mix", lambda comp: scenes.styled_mix(comp, 400, MIX_W, MIX_H))
+
+    # 8. paris-30k-textured; 9. the textured mix; 10. K5
+    kres["fold_tex"], launches["textured"] = paris_variant(device, "textured", "fold_tex")
+    _, launches["texmix"] = mix_vs_cpu(
+        device, "texmix", lambda comp: scenes.textured_mix(comp, 300, MIX_W, MIX_H))
+    kres["texture_probe"], launches["probe"] = texture_probe(device)
+    say("k5", question="marginal cost of sampling textures in the fold",
+        fold_tex_minus_fold_ms=f"{kres['fold_tex']['ms'] - kres['fold']['ms']:.4f}",
+        fold_tex_ms=f"{kres['fold_tex']['ms']:.4f}", fold_ms=f"{kres['fold']['ms']:.4f}")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -23,11 +23,19 @@
 //   of the frame and selects; the bits are the same;
 //   the clip state (clip_last, the end of the open clip range) is per tile
 //   and every thread updates its copy in the same order;
-//   three specialisations, one per launch counter: solid/Over (compiles
+//   four specialisations, one per launch counter: solid/Over (compiles
 //   none of the fill, blend or clip code), styled (gradient fills and blend
-//   modes, each a runtime branch on a lane offset >= 0 and the unit's code)
-//   and clip (the styled code plus the clip state); lane offsets and the
-//   stop count come in as runtime arguments.
+//   modes, each a runtime branch on a lane offset >= 0 and the unit's code),
+//   textured (the styled code plus texture fills) and clip (the textured
+//   code plus the clip state); lane offsets and the stop count come in as
+//   runtime arguments;
+//   a texture fill (fill type 2; paint.py:_texture_at, which the JAX
+//   package runs on its XLA wave fold, never in the Pallas kernel) samples
+//   the linear f32 atlas inside the fold, as forma's GPU painter does in
+//   its one kernel: a texture unit's 10 texture lanes are broadcast loads
+//   behind the fill-type branch, the texel one 16-byte float4 load per
+//   pixel through the cache, at int64 offsets (the atlas reaches 4096 x
+//   4096 texels, 256 MB).
 //
 // Bit-equality with the plain PyTorch version (fold_kernel.paint_fold_torch):
 // every f32 op is an explicitly rounded intrinsic (and --fmad=false) in the
@@ -36,13 +44,16 @@
 // propagate NaN, which fminf / fmaxf would drop, so they are written as
 // compare-and-select; the gradient stop chain keeps the `acc ^ (t < end)`
 // masks exactly, since padded stops (last colour, +inf) make local_t NaN or
-// inf outside them.
+// inf outside them; a texture coordinate converts to int as XLA does (NaN
+// -> 0, saturating: __float2int_rz), and the texel index clamps into the
+// atlas as JAX's gather does.
 //
 // Bound on the H100: latency of the dependent per-unit loads (unit -> run ->
 // grid row, style row) times the tile depth; the grid row read is one
 // coalesced 1 KB load per unit, the style row a broadcast.  A styled unit
 // adds ~90 f32 ops per pixel (gradient + stop chain + blend) to the 29 of a
-// solid/Over unit.  Each tile's pixels are written once.
+// solid/Over unit, a texture unit 18 and one dependent 16-byte texel load.
+// Each tile's pixels are written once.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -75,6 +86,14 @@ __device__ __forceinline__ float tmax(float a, float b) {
 
 struct Rgb {
   float r, g, b;
+};
+
+// The texture atlas (f32 [ah, aw, 4], linear) and the offset of the
+// style row's texture lanes (-1: a frame without textures).
+struct Tex {
+  const float4* atlas;
+  int64_t ah, aw;
+  int off;
 };
 
 // paint.py:_lum, _clip_color, _set_lum, _set_sat (forma_tpu/ops/paint.py:418-454).
@@ -219,12 +238,29 @@ __device__ void gradient(const int32_t* __restrict__ gm,
   }
 }
 
-// kStyled: gradients and blend modes; kClip (implies kStyled): clip masks.
-// Register caps for occupancy: the fold is bound by the latency of its
-// dependent per-unit loads.  The solid and styled folds are held to 32
-// registers (8 blocks of 256 threads per SM; the styled fold otherwise
-// takes 40 and 6 blocks), the clip fold to 40 (6 blocks).
-template <bool kStyled, bool kClip>
+// paint.py:_texture_at at one pixel: tl = (ux, uy, vx, vy, tx, ty, max_x,
+// max_y, ax, ay).  min and the clamp at 0 propagate NaN, which the int
+// conversion then maps to 0.
+__device__ __forceinline__ float4 texel(const Tex& tex, const float* tl,
+                                        float xg, float yg) {
+  const float sx = add(mul(xg, tl[0]), add(mul(tl[2], yg), tl[4]));
+  const float sy = add(mul(xg, tl[1]), add(mul(tl[3], yg), tl[5]));
+  const int64_t ix = __float2int_rz(tmax(truncf(tmin(sx, tl[6])), 0.0f));
+  const int64_t iy = __float2int_rz(tmax(truncf(tmin(sy, tl[7])), 0.0f));
+  int64_t col = __float2int_rz(tl[8]) + ix;
+  int64_t row = __float2int_rz(tl[9]) + iy;
+  col = col < 0 ? 0 : (col > tex.aw - 1 ? tex.aw - 1 : col);
+  row = row < 0 ? 0 : (row > tex.ah - 1 ? tex.ah - 1 : row);
+  return __ldg(tex.atlas + row * tex.aw + col);
+}
+
+// kStyled: gradients and blend modes; kTex (implies kStyled): texture
+// fills; kClip (implies kTex): clip masks.  Register caps for occupancy:
+// the fold is bound by the latency of its dependent per-unit loads.  The
+// solid, styled and textured folds are held to 32 registers (8 blocks of
+// 256 threads per SM; the styled fold otherwise takes 40 and 6 blocks),
+// the clip fold to 40 (6 blocks).
+template <bool kStyled, bool kClip, bool kTex>
 __global__ void __launch_bounds__(256, kClip ? 6 : 8)
 fold_kernel(const int32_t* __restrict__ ust, const int32_t* __restrict__ cnt,
             const int32_t* __restrict__ src2, const int32_t* __restrict__ virt,
@@ -234,7 +270,8 @@ fold_kernel(const int32_t* __restrict__ ust, const int32_t* __restrict__ cnt,
             const int32_t* __restrict__ tx_s,
             const int32_t* __restrict__ style,
             const float* __restrict__ clear, Lay lay, int64_t tiles_x,
-            int64_t run_cap, int64_t n_units, float* __restrict__ out) {
+            int64_t run_cap, int64_t n_units, float* __restrict__ out,
+            Tex tex) {
   const int64_t t = blockIdx.x;
   const int p = threadIdx.x;  // pixel: y = p >> 4, x = p & 15
   const int py = p >> 4;
@@ -308,6 +345,19 @@ fold_kernel(const int32_t* __restrict__ ust, const int32_t* __restrict__ cnt,
     if (kStyled && lay.ft >= 0 && fill_type == 1) {
       gradient(st + lay.grad, st + lay.stops, lay.ms, xg, yg, fr, fg, fb, fa);
     }
+    if (kTex && tex.off >= 0 && fill_type == 2) {
+      // The texture lanes load behind the branch: issued with the unit's
+      // other style loads instead, every solid unit loads them too, and
+      // the fold ran 3.5% slower on paris-30k-textured (PERF.md).
+      float tl[10];
+#pragma unroll
+      for (int i = 0; i < 10; ++i) tl[i] = F(st[tex.off + i]);
+      const float4 c = texel(tex, tl, xg, yg);
+      fr = c.x;
+      fg = c.y;
+      fb = c.z;
+      fa = c.w;
+    }
 
     float src_a = mul(fa, cov);
     if (kClip) {
@@ -343,32 +393,39 @@ fold_kernel(const int32_t* __restrict__ ust, const int32_t* __restrict__ cnt,
 using FoldFn = void (*)(const int32_t*, const int32_t*, const int32_t*,
                         const int32_t*, const int32_t*, const int32_t*,
                         const int32_t*, const int32_t*, const int32_t*,
-                        const float*, Lay, int64_t, int64_t, int64_t, float*);
+                        const float*, Lay, int64_t, int64_t, int64_t, float*,
+                        Tex);
 
-// Solid/Over, styled, clip (fold_kernel.variant).
-const FoldFn kFold[3] = {
-    fold_kernel<false, false>,
-    fold_kernel<true, false>,
-    fold_kernel<true, true>,
+// Solid/Over, styled, textured, clip (fold_kernel.variant).
+const FoldFn kFold[4] = {
+    fold_kernel<false, false, false>,
+    fold_kernel<true, false, false>,
+    fold_kernel<true, false, true>,
+    fold_kernel<true, true, true>,
 };
 
 }  // namespace
 
 // layout (host memory): fr, blend, ft, func, layer, cend, clipped, grad,
-// stops, width, ms; an offset of -1 leaves its feature out.  virt may be
-// null for a frame without clips.
+// stops, width, ms, tex; an offset of -1 leaves its feature out.  virt may
+// be null for a frame without clips, atlas for a frame without textures.
 extern "C" int forma_fold(const void* ust, const void* cnt, const void* src2,
                           const void* virt, const void* grid,
                           const void* carry_in, const void* carry_after,
                           const void* tx_s, const void* style,
                           const void* clear, const void* layout,
                           int64_t n_tiles, int64_t tiles_x, int64_t run_cap,
-                          int64_t n_units, void* out, cudaStream_t stream) {
+                          int64_t n_units, void* out, const void* atlas,
+                          int64_t atlas_h, int64_t atlas_w,
+                          cudaStream_t stream) {
   const int32_t* l = static_cast<const int32_t*>(layout);
   const Lay lay = {l[0], l[1], l[2], l[3], l[4], l[5],
                    l[6], l[7], l[8], l[9], l[10]};
+  const Tex tex = {static_cast<const float4*>(atlas), atlas_h, atlas_w, l[11]};
   const int idx =
-      lay.func >= 0 ? 2 : (lay.grad >= 0 || lay.blend >= 0 ? 1 : 0);
+      lay.func >= 0
+          ? 3
+          : (tex.off >= 0 ? 2 : (lay.grad >= 0 || lay.blend >= 0 ? 1 : 0));
   kFold[idx]<<<(unsigned)n_tiles, 256, 0, stream>>>(
       static_cast<const int32_t*>(ust), static_cast<const int32_t*>(cnt),
       static_cast<const int32_t*>(src2), static_cast<const int32_t*>(virt),
@@ -377,6 +434,6 @@ extern "C" int forma_fold(const void* ust, const void* cnt, const void* src2,
       static_cast<const int32_t*>(carry_after),
       static_cast<const int32_t*>(tx_s), static_cast<const int32_t*>(style),
       static_cast<const float*>(clear), lay, tiles_x, run_cap, n_units,
-      static_cast<float*>(out));
+      static_cast<float*>(out), tex);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,11 @@
 """Procedural demo/benchmark scenes.
 
 A copy of the parts of `forma_tpu/demos/scenes.py` that the port's smoke
-test and tests use: `circles`, `paris30k` and `paris30k_styled`, with the
-same seeds, so both packages build the same scenes; and `styled_mix`, the
-port's own seeded mix of every paint feature but textures.
+test and tests use: `circles`, `paris30k`, `paris30k_styled` and
+`paris30k_textured`, with the same seeds, so both packages build the same
+scenes; and the port's own seeded mixes: `styled_mix`, every paint
+feature but textures, and `textured_mix`, texture fills among all the
+others.
 
 `circles` mirrors the reference demo (`demo/src/demos/circles.rs`): N random
 translucent circles built from rational quads.
@@ -21,10 +23,11 @@ import math
 import numpy as np
 
 from ..composition import Composition, Order
-from ..math import Point
+from ..math import AffineTransform, Point
 from ..path import Path, PathBuilder
 from ..styling import (
-    BlendMode, Color, Fill, FillRule, Func, Gradient, GradientType, Props, Style,
+    BlendMode, Color, Fill, FillRule, Func, Gradient, GradientType, Image, Props,
+    Style, Texture,
 )
 
 _WEIGHT = math.sqrt(2.0) / 2.0
@@ -270,6 +273,124 @@ def paris30k_styled(
         order += 1
 
 
+def paris30k_textured(
+    composition: Composition,
+    width: int = 1920,
+    height: int = 1080,
+    paths: int = 30000,
+    seed: int = 30,
+):
+    """The texture variant of `paris30k` (`forma_tpu/demos/scenes.py:
+    177-281`): every building fills from a shared atlas of 8 distinct 32x32
+    facade images, affine-mapped per building; roads and parks stay
+    solid."""
+    rng = np.random.default_rng(seed)
+
+    composition.get_mut_or_insert_default(Order(0)).insert(
+        _polygon([0, 0, width, width], [0, height, height, 0])
+    ).set_props(
+        Props(func=Func.Draw(Style(fill=Fill.Solid(Color(0.93, 0.91, 0.88, 1.0)))))
+    )
+
+    # 8 shared facade textures (brick/plaster noise), interned once each.
+    images = []
+    for t in range(8):
+        base = 0.45 + 0.05 * t
+        px = rng.uniform(base * 200, base * 255, (32, 32, 3)).astype(np.uint8)
+        rgba = np.concatenate(
+            [px, np.full((32, 32, 1), 255, np.uint8)], axis=-1
+        )
+        images.append(Image.from_srgba(rgba.reshape(-1, 4), 32, 32))
+
+    order = 1
+    n_buildings = int(paths * 0.7)
+    n_roads = int(paths * 0.2)
+    n_parks = paths - n_buildings - n_roads - 1
+
+    cx = rng.uniform(0, width, n_buildings)
+    cy = rng.uniform(0, height, n_buildings)
+    w = rng.uniform(3, 14, n_buildings)
+    h = rng.uniform(3, 14, n_buildings)
+    ang = rng.uniform(0, math.pi, n_buildings)
+    ca, sa = np.cos(ang), np.sin(ang)
+    for i in range(n_buildings):
+        dx = [-w[i], -w[i], w[i], w[i]]
+        dy = [-h[i], h[i], h[i], -h[i]]
+        xs = [cx[i] + ca[i] * a - sa[i] * b for a, b in zip(dx, dy)]
+        ys = [cy[i] + sa[i] * a + ca[i] * b for a, b in zip(dx, dy)]
+        scale = 32.0 / max(2.0 * w[i], 2.0 * h[i])
+        tex = Texture(
+            transform=AffineTransform(
+                ux=scale, vy=scale,
+                tx=-float(min(xs)) * scale, ty=-float(min(ys)) * scale,
+            ),
+            image=images[i % len(images)],
+        )
+        composition.get_mut_or_insert_default(Order(order)).insert(
+            _polygon(xs, ys)
+        ).set_props(Props(func=Func.Draw(Style(fill=Fill.Texture(tex)))))
+        order += 1
+
+    x0 = rng.uniform(-100, width + 100, n_roads)
+    y0 = rng.uniform(-100, height + 100, n_roads)
+    ang = rng.uniform(0, math.pi, n_roads)
+    ln = rng.uniform(100, 600, n_roads)
+    wd = rng.uniform(1.0, 4.0, n_roads)
+    for i in range(n_roads):
+        dx, dy = math.cos(ang[i]), math.sin(ang[i])
+        nx, ny = -dy * wd[i], dx * wd[i]
+        xs = [x0[i] + nx, x0[i] - nx, x0[i] + dx * ln[i] - nx, x0[i] + dx * ln[i] + nx]
+        ys = [y0[i] + ny, y0[i] - ny, y0[i] + dy * ln[i] - ny, y0[i] + dy * ln[i] + ny]
+        composition.get_mut_or_insert_default(Order(order)).insert(
+            _polygon(xs, ys)
+        ).set_props(
+            Props(func=Func.Draw(Style(fill=Fill.Solid(Color(1.0, 1.0, 1.0, 0.9)))))
+        )
+        order += 1
+
+    cx = rng.uniform(0, width, n_parks)
+    cy = rng.uniform(0, height, n_parks)
+    r = rng.uniform(8, 40, n_parks)
+    for i in range(n_parks):
+        b = PathBuilder().move_to(Point(float(cx[i] + r[i]), float(cy[i])))
+        sides = 5
+        for s in range(1, sides + 1):
+            a0 = 2 * math.pi * (s - 0.5) / sides
+            a1 = 2 * math.pi * s / sides
+            b.quad_to(
+                Point(
+                    float(cx[i] + 1.4 * r[i] * math.cos(a0)),
+                    float(cy[i] + 1.4 * r[i] * math.sin(a0)),
+                ),
+                Point(
+                    float(cx[i] + r[i] * math.cos(a1)),
+                    float(cy[i] + r[i] * math.sin(a1)),
+                ),
+            )
+        composition.get_mut_or_insert_default(Order(order)).insert(b.build()).set_props(
+            Props(func=Func.Draw(Style(fill=Fill.Solid(Color(0.55, 0.75, 0.5, 0.85)))))
+        )
+        order += 1
+
+
+def _star_or_blob(rng, cx, cy, rad) -> Path:
+    """A star polygon (unsorted angles: self-intersecting) or a quad blob
+    around (cx, cy)."""
+    n = int(rng.integers(3, 8))
+    ang = rng.uniform(0.0, 2.0 * math.pi, n)
+    px = cx + rad * np.cos(ang)
+    py = cy + rad * np.sin(ang)
+    if rng.integers(0, 2):
+        return _polygon(px, py)
+    b = PathBuilder().move_to(Point(float(px[0]), float(py[0])))
+    for j in range(1, n + 1):
+        c = (cx + 1.3 * rad * math.cos(ang[j - 1] + 0.4),
+             cy + 1.3 * rad * math.sin(ang[j - 1] + 0.4))
+        b.quad_to(Point(*(float(v) for v in c)),
+                  Point(float(px[j % n]), float(py[j % n])))
+    return b.build()
+
+
 def styled_mix(
     composition: Composition,
     layers: int = 400,
@@ -292,20 +413,7 @@ def styled_mix(
     for i in range(layers):
         cx, cy = (float(v) for v in rng.uniform(0.0, [width, height]))
         rad = float(rng.uniform(12.0, 90.0))
-        n = int(rng.integers(3, 8))
-        ang = rng.uniform(0.0, 2.0 * math.pi, n)  # unsorted: self-intersects
-        px = cx + rad * np.cos(ang)
-        py = cy + rad * np.sin(ang)
-        if rng.integers(0, 2):
-            path = _polygon(px, py)
-        else:
-            b = PathBuilder().move_to(Point(float(px[0]), float(py[0])))
-            for j in range(1, n + 1):
-                c = (cx + 1.3 * rad * math.cos(ang[j - 1] + 0.4),
-                     cy + 1.3 * rad * math.sin(ang[j - 1] + 0.4))
-                b.quad_to(Point(*(float(v) for v in c)),
-                          Point(float(px[j % n]), float(py[j % n])))
-            path = b.build()
+        path = _star_or_blob(rng, cx, cy, rad)
         fill_rule = FillRule(int(rng.integers(0, 2)))
         if rng.random() < 0.2:
             props = Props(fill_rule=fill_rule, func=Func.Clip(int(rng.integers(1, 5))))
@@ -324,4 +432,73 @@ def styled_mix(
                 fill=fill, blend_mode=modes[i % len(modes)],
                 is_clipped=bool(rng.random() < 0.35),
             )))
+        composition.get_mut_or_insert_default(Order(i)).insert(path).set_props(props)
+
+
+def textured_mix(
+    composition: Composition,
+    layers: int = 300,
+    width: int = 512,
+    height: int = 512,
+    seed: int = 11,
+):
+    """A seeded mix with texture fills among every other paint feature:
+    star polygons and quad blobs with both fill rules; about 60% of the
+    layers fill from 6 images of odd, non-square sizes (1x7 to 13x5, some
+    texels translucent) through rotated, scaled transforms whose texture
+    coordinates run negative and past the image's last texel; about 10%
+    linear/radial gradients, 10% solid fills and 20% clips governing the
+    next 1-4 layers; every third draw blends with a non-Over mode and about
+    a third of the draws are clipped."""
+    rng = np.random.default_rng(seed)
+    modes = list(BlendMode)
+    images = []
+    for w, h in ((5, 3), (7, 11), (13, 5), (1, 7), (9, 9), (3, 12)):
+        px = rng.integers(0, 256, (h * w, 4)).astype(np.uint8)
+        px[:, 3] = np.where(rng.random(h * w) < 0.7, 255, px[:, 3])
+        images.append(Image.from_srgba(px, w, h))
+
+    def color():
+        return Color(*(float(v) for v in rng.uniform(0.0, 1.0, 3)),
+                     float(rng.uniform(0.3, 1.0)))
+
+    for i in range(layers):
+        cx, cy = (float(v) for v in rng.uniform(0.0, [width, height]))
+        rad = float(rng.uniform(0.03, 0.2) * max(width, height))
+        path = _star_or_blob(rng, cx, cy, rad)
+        fill_rule = FillRule(int(rng.integers(0, 2)))
+        kind = rng.random()
+        if kind < 0.2:
+            props = Props(fill_rule=fill_rule, func=Func.Clip(int(rng.integers(1, 5))))
+            composition.get_mut_or_insert_default(Order(i)).insert(path).set_props(props)
+            continue
+        if kind < 0.8:
+            image = images[int(rng.integers(0, len(images)))]
+            a = float(rng.uniform(0.0, 2.0 * math.pi))
+            s = float(rng.uniform(0.02, 0.4))
+            ux, uy = s * math.cos(a), s * math.sin(a)
+            vx, vy = -s * math.sin(a), s * math.cos(a)
+            # Centre the image on the shape, then shift it by up to its own
+            # size either way: coordinates run below 0 and past max_x/max_y.
+            w, h = image.width(), image.height()
+            tx = -(cx * ux + cy * vx) + float(rng.uniform(-w, w))
+            ty = -(cx * uy + cy * vy) + float(rng.uniform(-h, h))
+            fill = Fill.Texture(Texture(
+                transform=AffineTransform(ux=ux, uy=uy, vx=vx, vy=vy, tx=tx, ty=ty),
+                image=image,
+            ))
+        elif kind < 0.9:
+            stops = tuple(
+                (color(), float(t))
+                for t in np.sort(rng.uniform(0.0, 1.0, int(rng.integers(2, 5))))
+            )
+            gtype = GradientType(int(rng.integers(0, 2)))
+            end = (cx + float(rng.uniform(-rad, rad)), cy + float(rng.uniform(-rad, rad)))
+            fill = Fill.Gradient(Gradient(gtype, Point(cx, cy), Point(*end), stops))
+        else:
+            fill = Fill.Solid(color())
+        mode = modes[int(rng.integers(1, len(modes)))] if i % 3 == 0 else BlendMode.Over
+        props = Props(fill_rule=fill_rule, func=Func.Draw(Style(
+            fill=fill, blend_mode=mode, is_clipped=bool(rng.random() < 0.35),
+        )))
         composition.get_mut_or_insert_default(Order(i)).insert(path).set_props(props)

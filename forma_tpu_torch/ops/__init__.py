@@ -9,11 +9,11 @@
   rasterize      the "fused" (K4) or "split" (K1 + emit) path, one torch.sort
   grid_kernel    K2: per-run area|cover grids and run keys (csrc/grid.cu)
   runs           run extraction, cover-carry chains, paint units
-  fold_kernel    K3: the per-tile paint fold (csrc/fold.cu), in three
+  fold_kernel    K3: the per-tile paint fold (csrc/fold.cu), in four
                  specialisations: solid/Over, styled (gradients and blend
-                 modes), clip
-  paint          style rows, fill and blend trees, occlusion and trivial-
-                 clip passes, the fold dispatch
+                 modes), textured (texture fills sampled in the fold), clip
+  paint          style rows, fill (gradient, texture) and blend trees,
+                 occlusion and trivial-clip passes, the fold dispatch
   srgb           linear -> sRGB + channel mapping + u8 pack
   pipeline       the whole frame with capacity buckets and diagnostics
 

@@ -39,7 +39,9 @@ NVCC_FLAGS = (
 LAUNCHES = {
     "expand": 0, "rasterize": 0, "grid": 0,
     # K3, one counter per specialisation (`fold_kernel.variant`)
-    "fold": 0, "fold_styled": 0, "fold_clip": 0,
+    "fold": 0, "fold_styled": 0, "fold_tex": 0, "fold_clip": 0,
+    # K5, the texture-fold probe (`probes.texture_fold`)
+    "texture_probe": 0,
 }
 
 _P = ctypes.c_void_p
@@ -48,8 +50,9 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "forma_expand": [_P, _P, _I64, _I64, _P, _P, _P],
     "forma_grid": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
-    "forma_fold": [_P] * 11 + [_I64] * 4 + [_P, _P],
+    "forma_fold": [_P] * 11 + [_I64] * 4 + [_P, _P, _I64, _I64, _P],
     "forma_rasterize": [_P] * 3 + [_I64] * 8 + [_P, _P, _P],
+    "forma_texture_probe": [_P, _P] + [_I64] * 5 + [_P, _P],
 }
 
 _lib = None

@@ -2,15 +2,17 @@
 
 Counterpart of `forma_tpu/ops/paint_pallas.py:90-174,177-483`
 (`style_layout`, `_gradient_fill`, `paint_fold_pallas`) and of its prep in
-`forma_tpu/ops/paint.py:144-305` (`_paint_fold_pallas`).  Every tile folds
-its (tile, layer)-sorted paint units bottom to top:
+`forma_tpu/ops/paint.py:144-305` (`_paint_fold_pallas`), widened with the
+texture fills that the JAX package paints on its XLA wave fold
+(`paint.py:393-412,969-981`).  Every tile folds its (tile, layer)-sorted
+paint units bottom to top:
 
     coverage = carry + exclusive cover prefix along the pixel row + area,
                under the nonzero or even-odd rule;
     clip state: a clip unit's coverage becomes the tile's clip mask, and
                the clip range it opens expires past its last layer;
-    fill = the solid colour, or a linear/radial gradient evaluated at the
-           pixel's integer global coordinates;
+    fill = the solid colour, a linear/radial gradient or an atlas texel,
+           evaluated at the pixel's integer global coordinates;
     src_a = fill alpha * coverage (* clip mask for clipped draws);
     the unit's blend mode (one of 16) mixes fill with dst, then Over.
 
@@ -23,13 +25,14 @@ also read each unit's FLAG_UNCLIPPED bit from `virt_u` (the JAX package
 bakes it into an assembled unit matrix instead, `paint.py:260-270`).
 
 The CUDA kernel (`csrc/fold.cu`) runs one block per tile and one thread
-per pixel, in three specialisations: solid/Over (none of the fill, blend
-or clip code), styled (gradients and blend modes) and clip; the plain
-version advances all tiles one unit per step.  Both use the Pallas
-kernel's expression trees op for op, so their f32 results are bit-equal.
-Launches count per
-specialisation: "fold" (solid fills, Over), "fold_styled" (gradients or
-blend modes), "fold_clip" (any frame with clips).
+per pixel, in four specialisations: solid/Over (none of the fill, blend
+or clip code), styled (gradients and blend modes), textured (texture
+fills, with gradients and blend modes) and clip (all of it, textures
+included); the plain version advances all tiles one unit per step.  Both
+use the JAX expression trees op for op, so their f32 results are
+bit-equal.  Launches count per specialisation: "fold" (solid fills,
+Over), "fold_styled" (gradients or blend modes), "fold_tex" (texture
+fills, no clips), "fold_clip" (any frame with clips).
 """
 
 from __future__ import annotations
@@ -69,20 +72,24 @@ class StyleLayout(NamedTuple):
     clipped: int
     grad: int
     stops: int
+    tex: int
     width: int
 
 
 def style_layout(features, ms: int) -> StyleLayout:
     """The feature-dependent style-row layout (`paint_pallas.py:104-123`):
     fill 4 | fill rule 1 | [blend 1] | [fill type 1] | [func, layer id,
-    clip range end, clipped: 4] | [gradient 6 | stops 5 * ms]."""
+    clip range end, clipped: 4] | [gradient 6 | stops 5 * ms] | [texture
+    10].  The texture group is the port's own, appended last, so every
+    texture-free layout is JAX's; the fill-type lane is present for
+    gradients or textures."""
     off = 0
     fill, off = off, off + 4
     fr, off = off, off + 1
-    blend = ft = func = layer = cend = clipped = grad = stops = -1
+    blend = ft = func = layer = cend = clipped = grad = stops = tex = -1
     if tuple(features.blend_modes) != (0,):
         blend, off = off, off + 1
-    if features.has_gradient:
+    if features.has_gradient or features.has_texture:
         ft, off = off, off + 1
     if features.has_clip:
         func, off = off, off + 1
@@ -92,8 +99,10 @@ def style_layout(features, ms: int) -> StyleLayout:
     if features.has_gradient:
         grad, off = off, off + 6
         stops, off = off, off + 5 * ms
+    if features.has_texture:
+        tex, off = off, off + 10
     return StyleLayout(
-        fill, fr, blend, ft, func, layer, cend, clipped, grad, stops, off
+        fill, fr, blend, ft, func, layer, cend, clipped, grad, stops, tex, off
     )
 
 
@@ -102,6 +111,8 @@ def variant(features) -> str:
     select."""
     if features.has_clip:
         return "fold_clip"
+    if features.has_texture:
+        return "fold_tex"
     if features.has_gradient or tuple(features.blend_modes) != (0,):
         return "fold_styled"
     return "fold"
@@ -110,9 +121,11 @@ def variant(features) -> str:
 @functools.lru_cache(maxsize=None)
 def _launch_layout(features, ms: int):
     """(launch counter, style layout, the C entry's layout array: lane
-    offsets and the stop count), once per (features, ms)."""
+    offsets, row width, stop count, texture offset), once per (features,
+    ms)."""
     lay = style_layout(features, ms)
-    return variant(features), lay, (ctypes.c_int32 * 11)(*lay[1:], ms)
+    return variant(features), lay, (ctypes.c_int32 * 12)(
+        *lay[1:10], lay.width, ms, lay.tex)
 
 
 def tile_spans(key_u, u_valid, rows: int, tiles_x: int, k_slots: int):
@@ -132,7 +145,7 @@ def tile_spans(key_u, u_valid, rows: int, tiles_x: int, k_slots: int):
 
 
 def paint_fold(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s, tx_s,
-               style_s, clear, tiles_x: int, features, ms: int):
+               style_s, clear, tiles_x: int, features, ms: int, atlas=None):
     """Folds every tile's units; returns linear f32 [T, 4 * 256]
     (channel-major blocks of 256 pixels, pixel j = (y = j // 16, x = j % 16),
     at global pixel (16 * (t % tiles_x) + x, 16 * (t // tiles_x) + y)).
@@ -140,12 +153,13 @@ def paint_fold(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s, tx_s,
     ust, cnt i32 [T]; src2_u i32 [U] unit -> run; virt_u i32 [U] unit
     flags (read for FLAG_UNCLIPPED by clip frames; None otherwise); grid
     i32 [R, 256]; carry_in_s, carry_after_s i32 [R, 16]; tx_s i32 [R];
-    style_s i32 [R, style_layout(features, ms).width]; clear f32 [4].
+    style_s i32 [R, style_layout(features, ms).width]; clear f32 [4];
+    atlas f32 [AH, AW, 4], read by texture frames (None otherwise).
     CUDA tensors launch `forma_fold`; CPU tensors take `paint_fold_torch`."""
     if not grid.is_cuda:
         return paint_fold_torch(ust, cnt, src2_u, virt_u, grid, carry_in_s,
                                 carry_after_s, tx_s, style_s, clear, tiles_x,
-                                features, ms)
+                                features, ms, atlas)
     counter, lay, layout = _launch_layout(features, ms)
     T = ust.shape[0]
     R = grid.shape[0]
@@ -161,6 +175,13 @@ def paint_fold(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s, tx_s,
     _build.check(tx_s, "tx_s", torch.int32, (R,))
     _build.check(style_s, "style_s", torch.int32, (R, lay.width))
     _build.check(clear, "clear", torch.float32, (4,))
+    ah = aw = 0
+    if features.has_texture:
+        if atlas is None or atlas.dim() != 3:
+            raise ValueError("paint_fold: a texture frame needs atlas f32 [AH, AW, 4]")
+        ah, aw = atlas.shape[:2]
+        _build.check(atlas, "atlas", torch.float32, (ah, aw, 4))
+        _build.check_aligned(atlas, "atlas", 16)  # one float4 load per texel
     if U < 1 or R < 1:
         raise ValueError("paint_fold: empty unit or run table")
     out = torch.empty((T, 4 * 256), dtype=torch.float32, device=grid.device)
@@ -171,22 +192,26 @@ def paint_fold(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s, tx_s,
             virt_u.data_ptr() if features.has_clip else None, grid.data_ptr(),
             carry_in_s.data_ptr(), carry_after_s.data_ptr(), tx_s.data_ptr(),
             style_s.data_ptr(), clear.data_ptr(), layout, T, tiles_x, R, U,
-            out.data_ptr(),
+            out.data_ptr(), atlas.data_ptr() if features.has_texture else None,
+            ah, aw,
         )
     return out
 
 
 def paint_fold_torch(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s,
-                     tx_s, style_s, clear, tiles_x: int, features, ms: int):
+                     tx_s, style_s, clear, tiles_x: int, features, ms: int,
+                     atlas=None):
     """Plain PyTorch version of `paint_fold`: a loop over k that advances
     every tile by one unit, with the Pallas kernel's expression trees
-    (`paint_pallas.py:327-415`).  A step past a tile's count leaves its
-    pixels and clip state as they were."""
+    (`paint_pallas.py:327-415`) and the wave fold's texture select
+    (`paint.py:977-981`).  A step past a tile's count leaves its pixels
+    and clip state as they were."""
     # paint imports this module, so its fill and blend trees load here.
-    from .paint import _blend, _gradient_at
+    from .paint import _blend, _gradient_at, _texture_at
 
     lay = style_layout(features, ms)
     has_grad, has_clip = features.has_gradient, features.has_clip
+    has_tex = features.has_texture
     dev = grid.device
     T = ust.shape[0]
     R = grid.shape[0]
@@ -195,7 +220,7 @@ def paint_fold_torch(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s,
     dst = [clear[ch].to(f32).expand(T, 256).clone() for ch in range(4)]
     tile = torch.arange(T, device=dev)
     ttx = tile % tiles_x
-    if has_grad:
+    if has_grad or has_tex:
         j = torch.arange(256, device=dev)
         xg = (ttx[:, None] * TW + j % TW).to(f32)
         yg = ((tile // tiles_x)[:, None] * TH + j // TW).to(f32)
@@ -245,6 +270,10 @@ def paint_fold_torch(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s,
             gf = _gradient_at(gm, stops, xg, yg)
             selg = st[:, lay.ft, None] == 1
             fill = [torch.where(selg, g, f) for g, f in zip(gf, fill)]
+        if has_tex:
+            tf = _texture_at(bits_f32(st[:, lay.tex : lay.tex + 10]), atlas, xg, yg)
+            selt = st[:, lay.ft, None] == 2
+            fill = [torch.where(selt, t, f) for t, f in zip(tf, fill)]
 
         src_a = fill[3] * cov
         if has_clip:
@@ -277,18 +306,19 @@ def paint_fold_torch(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s,
 
 def fold_tiles(key_u, u_valid, src2_u, virt_u, grid, carry_in_s, carry_after_s,
                tx_s, style_s, clear, rows: int, tiles_x: int, k_slots: int,
-               features, ms: int, plain: bool = False, taps=None):
+               features, ms: int, atlas=None, plain: bool = False, taps=None):
     """Table-mode prep + fold; returns the frame's tiles as linear f32
     [T, TH, TW, 4] (the counterpart of `paint._paint_fold_pallas` with
-    `presorted=True`).  `plain` runs K3's plain PyTorch version on any
-    device; `taps` (a dict) receives K3's inputs under "fold"."""
+    `presorted=True`).  `atlas` is read by texture frames only.  `plain`
+    runs K3's plain PyTorch version on any device; `taps` (a dict)
+    receives K3's inputs under "fold"."""
     ust, cnt = tile_spans(key_u, u_valid, rows, tiles_x, k_slots)
     args = (
         ust, cnt, src2_u.to(torch.int32).contiguous(),
         virt_u.to(torch.int32).contiguous() if features.has_clip else None,
         grid.contiguous(), carry_in_s.contiguous(), carry_after_s.contiguous(),
         tx_s.contiguous(), style_s.contiguous(), clear.contiguous(), tiles_x,
-        features, ms,
+        features, ms, atlas.contiguous() if features.has_texture else None,
     )
     if taps is not None:
         taps["fold"] = args

@@ -2,8 +2,9 @@
 
 Counterpart of `forma_tpu/ops/paint.py:85-141,331-611,624-780` on the
 presorted packed-key path, where the fold runs in table mode (K3,
-`fold_kernel.fold_tiles`): solid and gradient fills, the 16 blend modes
-and clip masks.  Texture fills raise (ROADMAP.md section 1, item 9.4).
+`fold_kernel.fold_tiles`): solid, gradient and texture fills, the 16 blend
+modes and clip masks.  The JAX package paints texture frames on its XLA
+wave fold (`paint.py:969-981`); the port samples the atlas inside K3.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 from .. import consts
 
-from ._u32 import SENTINEL, f32_bits
+from ._u32 import SENTINEL, f2i32, f32_bits
 from .fold_kernel import FLAG_UNCLIPPED, fold_tiles, style_layout
 from .runs import _roll1, sort_units
 
@@ -40,24 +41,17 @@ class Features(NamedTuple):
     has_clip: bool = False
 
 
-def require_slice(features: Features) -> None:
-    """Raises for frames the port does not cover yet: texture fills."""
-    if features.has_texture:
-        raise NotImplementedError(
-            f"frame features {features} are not ported yet: texture fills "
-            "are ROADMAP.md section 1, item 9.4 (textures and the atlas)"
-        )
-
-
 def style_pack_for_fold(
     features,
     st_orders, st_pidx, st_fill_rule, st_func, st_clip_n, st_is_clipped,
-    st_blend, st_fill_type, st_color, st_grad, st_stops,
+    st_blend, st_fill_type, st_color, st_grad, st_stops, st_tex,
 ):
     """Per-layer-slot style rows in the fold's feature-dependent lane
     layout (`fold_kernel.style_layout`), i32 [SL, lay.width]: one [P]-row
     matrix and one gather by pidx; clip frames then get the per-slot layer
-    id and clip range end (`forma_tpu/ops/paint.py:85-141`)."""
+    id and clip range end (`forma_tpu/ops/paint.py:85-141`).  Texture
+    frames append the f32 bits of `st_tex` [P, 10], a group JAX's layout
+    lacks (its Pallas fold never sees textures)."""
     P = st_color.shape[0]
     ms = st_stops.shape[1]
     lay = style_layout(features, ms)
@@ -76,6 +70,8 @@ def style_pack_for_fold(
         ])
     if lay.grad >= 0:
         cols.extend([f32_bits(st_grad), f32_bits(st_stops.reshape(P, 5 * ms))])
+    if lay.tex >= 0:
+        cols.append(f32_bits(st_tex))
     sl = torch.cat(cols, dim=1)[st_pidx.long()]  # the one gather
     if lay.func < 0:
         return sl
@@ -128,6 +124,25 @@ def _gradient_at(grad, stops, xg, yg):
             chans[ch] = torch.where(m, v, chans[ch])
         acc = acc | m
     return chans
+
+
+def _texture_at(tex, atlas, xg, yg):
+    """tex [T, 10] = (ux, uy, vx, vy, tx, ty, max_x, max_y, ax, ay); atlas
+    f32 [AH, AW, 4] linear.  f32 -> i32 converts as XLA does (`f2i32`:
+    NaN -> 0, saturating), and the gather clamps its indices into the
+    atlas as JAX's does (the atlas offsets are never negative)."""
+    ux, uy, vx, vy, ttx, tty, max_x, max_y = (tex[:, i, None] for i in range(8))
+    ax = f2i32(tex[:, 8, None]).long()
+    ay = f2i32(tex[:, 9, None]).long()
+
+    sx = xg * ux + (vx * yg + ttx)
+    sy = xg * uy + (vy * yg + tty)
+    # Saturating f32 -> u32: negatives clamp to zero; NaN stays NaN -> 0.
+    ix = f2i32(torch.clamp(torch.trunc(torch.minimum(sx, max_x)), min=0.0)).long()
+    iy = f2i32(torch.clamp(torch.trunc(torch.minimum(sy, max_y)), min=0.0)).long()
+    ah, aw = atlas.shape[:2]
+    texel = atlas[torch.clamp(ay + iy, 0, ah - 1), torch.clamp(ax + ix, 0, aw - 1)]
+    return [texel[..., ch] for ch in range(4)]
 
 
 def _lum(r, g, b):
@@ -356,13 +371,14 @@ def paint(
     k_slots: int,
     features: Features,
     ms: int,  # gradient stop capacity
+    atlas=None,  # f32 [AH, AW, 4] linear texture atlas (texture frames)
     plain: bool = False,
     taps=None,
 ):
     """Returns the painted frame as linear f32 [rows*16, tiles_x*16, 4]."""
     frame_t = fold_tiles(
         key_u, u_valid, src2_u, virt_u, grid, carry_in_s, carry_after_s, tx_s,
-        style_s, clear, rows, tiles_x, k_slots, features, ms,
+        style_s, clear, rows, tiles_x, k_slots, features, ms, atlas,
         plain=plain, taps=taps,
     )
     frame = frame_t.reshape(rows, tiles_x, TH, TW, 4)

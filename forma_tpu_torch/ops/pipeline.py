@@ -8,8 +8,8 @@ vector (actual totals vs capacities); the renderer reads both once and
 re-renders with bigger buckets on overflow.
 
 Ported: the packed single-key path (`slot_bits > 0`), uncached and
-uncropped, for solid and gradient fills, the 16 blend modes and clips.
-Texture frames and the rest raise `NotImplementedError`.
+uncropped, for solid, gradient and texture fills, the 16 blend modes and
+clips.  The wide-key fallback, damage cache and crop are not ported.
 """
 
 from __future__ import annotations
@@ -60,7 +60,6 @@ def _core(
     caps: Caps, features: Features, channels,
     expand: str = "fused", plain: bool = False, taps=None,
 ):
-    _paint.require_slice(features)
     params, slots, lengths, vline_ends = _ls.line_setup(
         px, py, line_slot, g_slot, g_valid, g_t, g_has_t, width, height,
         k_seg=K_SEG,
@@ -112,7 +111,7 @@ def _back(
             features,
             st["orders"], st["pidx"], st["fill_rule"], st["func"],
             st["clip_n"], st["is_clipped"], st["blend"], st["fill_type"],
-            st["color"], st["grad"], st["stops"],
+            st["color"], st["grad"], st["stops"], st["tex"],
         ),
         plain=plain, taps=taps,
     )
@@ -149,7 +148,7 @@ def _back(
     frame = _paint.paint(
         key_u, u_valid, src2_u, virt_u, rd["grid"], rd["carry_in_s"],
         rd["carry_after_s"], rd["style_s"], rd["tx_s"], clear,
-        rows, tiles_x, caps.k, features, st["stops"].shape[1],
+        rows, tiles_x, caps.k, features, st["stops"].shape[1], st["atlas"],
         plain=plain, taps=taps,
     )
     packed = _srgb.pack_srgb(frame, channels)

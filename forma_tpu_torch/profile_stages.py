@@ -1,11 +1,13 @@
 """Where the time of a paris-30k frame goes on the card, stage by stage.
 
-    python -m forma_tpu_torch.profile_stages [--scene paris|styled] [--frames 3]
+    python -m forma_tpu_torch.profile_stages [--scene paris|styled|textured] [--frames 3]
 
 Renders paris-30k at 1920x1080 (`--scene paris`, `demos.scenes.paris30k`,
-solid fills; or `--scene styled`, `demos.scenes.paris30k_styled`, gradient
-fills and Screen-blended roads) through `Renderer.render` on each expand
-path ("fused" and "split") and prints, per path:
+solid fills; `--scene styled`, `demos.scenes.paris30k_styled`, gradient
+fills and Screen-blended roads; or `--scene textured`,
+`demos.scenes.paris30k_textured`, buildings filled from a texture atlas)
+through `Renderer.render` on each expand path ("fused" and "split") and
+prints, per path:
 
 1. the unfenced frame time (host clock around `render`, which returns the
    frame on the host), median / min / max over `--frames` frames after
@@ -34,7 +36,8 @@ from .demos import scenes
 from .ops import fold_kernel, pipeline, rasterize, runs
 
 W, H = 1920, 1080
-SCENES = {"paris": scenes.paris30k, "styled": scenes.paris30k_styled}
+SCENES = {"paris": scenes.paris30k, "styled": scenes.paris30k_styled,
+          "textured": scenes.paris30k_textured}
 # (module, attribute, row label, nesting depth) in frame order.
 STAGES = (
     (pipeline._ls, "line_setup", "line_setup", 0),

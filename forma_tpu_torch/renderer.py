@@ -306,7 +306,9 @@ class Renderer:
         px, py, line_slot, uniq = self._prepare_geometry(composition)
         self._estimate_caps(composition, width, height)
 
-        # Style tables depend on membership + props, not transforms.
+        # Style tables depend on membership + props, not transforms; the
+        # cached tables hold the texture atlas on the device, so an
+        # unchanged scene uploads it once.
         skey = (
             composition.shared_segment_buffer().serial,
             composition._shared.scene_version,

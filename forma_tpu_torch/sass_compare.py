@@ -1,0 +1,88 @@
+"""Compares the compiled K3 fold specialisations of two trees, by SASS.
+
+    python -m forma_tpu_torch.sass_compare DIR
+
+Builds the CUDA kernels of this checkout and of the one in DIR (for
+example a parent commit unpacked with `git archive`), each with its own
+`ops/_build.py` and flags, then disassembles both `fold.o` with
+`cuobjdump -sass` and compares each specialisation of `fold_kernel`
+instruction by instruction (addresses and encodings left out), matched by
+their leading template flags: a tree whose template has more flags pads
+the other's with false.  Prints one line per specialisation: its
+instruction counts and whether the code is identical.  Needs nvcc and
+cuobjdump (the CUDA toolkit), not a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import os
+import re
+import subprocess
+from pathlib import Path
+
+FUNC_RE = re.compile(r"Function : (\S+)")
+FLAGS_RE = re.compile(r"fold_kernelI((?:Lb[01]E)+)E")
+ADDR_RE = re.compile(r"/\*[0-9a-f]{4,}\*/")
+
+
+def _load_build(root: Path):
+    path = root / "forma_tpu_torch" / "ops" / "_build.py"
+    spec = importlib.util.spec_from_file_location(f"_build_{abs(hash(root))}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fold_sass(root: Path) -> dict:
+    """{template flags (tuple of bools): [instruction, ...]} of the
+    fold_kernel specialisations in `root`'s build of csrc/fold.cu."""
+    build = _load_build(root)
+    obj = build.build().parent / "fold.o"
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(obj)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = FUNC_RE.search(line)
+        if m:
+            flags = FLAGS_RE.search(m.group(1))
+            cur = None
+            if flags:
+                cur = tuple(b == "1" for b in re.findall(r"Lb([01])E", flags.group(1)))
+                funcs[cur] = []
+            continue
+        if cur is not None and ADDR_RE.search(line):
+            ins = ADDR_RE.sub("", line.split(";")[0]).strip()
+            if ins:
+                funcs[cur].append(ins)
+    return funcs
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", help="root of the other checkout")
+    opts = ap.parse_args(argv)
+    here = fold_sass(Path(__file__).resolve().parents[1])
+    there = fold_sass(Path(opts.other).resolve())
+    width = max(len(k) for k in list(here) + list(there))
+
+    def pad(k):
+        return k + (False,) * (width - len(k))
+
+    there = {pad(k): v for k, v in there.items()}
+    for key, ins in sorted((pad(k), v) for k, v in here.items()):
+        other = there.get(key)
+        flags = "<" + ", ".join("true" if b else "false" for b in key) + ">"
+        if other is None:
+            print(f"fold_kernel{flags}: {len(ins)} instructions here; not in {opts.other}")
+            continue
+        diff = sum(a != b for a, b in zip(ins, other)) + abs(len(ins) - len(other))
+        print(f"fold_kernel{flags}: {len(ins)} instructions here, {len(other)} there, "
+              f"{'identical' if diff == 0 else f'{diff} differ'}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

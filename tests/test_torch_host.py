@@ -208,20 +208,32 @@ def _demo_scene(pkg_scenes, pkg, kind):
     comp = pkg.Composition()
     if kind == "circles":
         pkg_scenes.circles(comp, 64, 256, 256)
-    elif kind == "paris30k_styled":
-        pkg_scenes.paris30k_styled(comp, 256, 256, paths=400)
+    elif kind == "textured_mix":
+        pkg_scenes.textured_mix(comp, 300, 512, 512)
+    elif kind in ("paris30k_styled", "paris30k_textured"):
+        getattr(pkg_scenes, kind)(comp, 256, 256, paths=400)
     else:
         pkg_scenes.paris30k(comp, 256, 256, paths=400)
     return comp
 
 
 @pytest.mark.parametrize(
-    "kind", ["circles", "paris30k", "paris30k_styled", "edited-0", "edited-1"]
+    "kind", ["circles", "paris30k", "paris30k_styled", "paris30k_textured",
+             "textured_mix", "edited-0", "edited-1"]
 )
 def test_port_builds_scene_as_jax(kind):
+    """The demo scenes (`textured_mix`, the port's own, built through the
+    JAX package's classes by `test_torch_texture.JAX_SCENES`): equal
+    buffers, registries and style tables, the texture atlas included."""
     if kind.startswith("edited"):
         seed = int(kind.split("-")[1])
         comp, port = (_edited_scene(pkg, seed) for pkg in (forma_tpu, forma_tpu_torch))
+    elif kind == "textured_mix":
+        from test_torch_texture import JAX_SCENES
+
+        comp = _demo_scene(JAX_SCENES, forma_tpu, kind)
+        port = _demo_scene(port_scenes, forma_tpu_torch, kind)
+        assert JaxStyleMap().build(comp.layers).atlas.shape[0] > 1
     else:
         comp = _demo_scene(jax_scenes, forma_tpu, kind)
         port = _demo_scene(port_scenes, forma_tpu_torch, kind)
@@ -229,7 +241,8 @@ def test_port_builds_scene_as_jax(kind):
     _assert_same_state(comp, port)
 
 
-@pytest.mark.parametrize("kind", ["circles", "paris30k", "paris30k_styled"])
+@pytest.mark.parametrize("kind", ["circles", "paris30k", "paris30k_styled",
+                                  "paris30k_textured"])
 def test_port_built_scene_matches_oracle(kind):
     """The chip smoke test's scenes as the port builds them, rendered by
     the port on the CPU, against the numpy oracle on the JAX-built scene

@@ -165,8 +165,8 @@ def _fold_inputs(build, w, h, monkeypatch):
     """The arguments `paint.paint` hands to `fold_tiles` when the port's
     own pipeline renders the scene (after one render grew the buckets):
     (key_u, u_valid, src2_u, virt_u, grid, carry_in_s, carry_after_s,
-    tx_s, style_s, clear, rows, tiles_x, k_slots, features, ms), and the
-    diag vector."""
+    tx_s, style_s, clear, rows, tiles_x, k_slots, features, ms, atlas), and
+    the diag vector."""
     jax_comp = Composition()
     build(jax_comp)
     comp = composition_from_jax(jax_comp)
@@ -182,7 +182,7 @@ def _jax_fold(args):
     presorted path src_u == src2_u, and the prep reads neither layer_u nor
     k_u (zeros here)."""
     (key_u, u_valid, src2_u, virt_u, grid, ci, ca, tx_s, style_s, clear,
-     rows, tiles_x, k_slots, features, ms) = args
+     rows, tiles_x, k_slots, features, ms, _atlas) = args
 
     def j(t, dt):
         return jnp.asarray(t.numpy().astype(dt))
@@ -252,10 +252,33 @@ def test_styled_fold_matches_pallas(name, build, w, h, tol, monkeypatch):
     assert np.abs(got - want).max() <= tol
 
 
-@pytest.mark.parametrize("name, build, w, h, tol", STYLED, ids=[s[0] for s in STYLED])
+def _texture_e2e(comp):
+    from e2e_scenes import all_scenes
+
+    dict(all_scenes())["tests__texture__cpu"](comp)
+
+
+def _textured_mix(comp):
+    from test_torch_texture import JAX_SCENES
+
+    JAX_SCENES.textured_mix(comp, 40, 64, 64)
+
+
+TEXTURED = [
+    ("texture_e2e", _texture_e2e, 64, 64, 0.0),
+    ("textured_mix", _textured_mix, 64, 64, 0.0),
+]
+
+
+@pytest.mark.parametrize("name, build, w, h, tol", STYLED + TEXTURED,
+                         ids=[s[0] for s in STYLED + TEXTURED])
 def test_style_pack_matches_jax(name, build, w, h, tol):
     """The feature-dependent style rows, bit for bit, from the same style
-    tables (JAX's per-slot layer id and clip range end included)."""
+    tables (JAX's per-slot layer id and clip range end included).  Texture
+    frames: the lanes of JAX's layout equal JAX's rows; the port's own
+    texture lanes hold the f32 bits of `st_tex[pidx]`, and its fill-type
+    lane (which JAX's layout has only with gradients) `st_fill_type[pidx]`."""
+    from forma_tpu.ops.paint_pallas import style_layout as jax_layout
     from forma_tpu.ops.styles import StyleMap as JaxStyleMap
 
     comp = Composition()
@@ -268,11 +291,28 @@ def test_style_pack_matches_jax(name, build, w, h, tol):
     features = paint.Features(*st.features)
     got = paint.style_pack_for_fold(
         features, *(torch.from_numpy(c.astype(np.int64) if c.dtype == np.uint32 else c)
-                    for c in cols)
+                    for c in cols + [st.tex])
     ).numpy()
+    lay = style_layout(features, st.max_stops)
     assert got.dtype == np.int32
-    assert got.shape == want.shape == (len(st.orders), style_layout(features, st.max_stops).width)
-    np.testing.assert_array_equal(got, want)
+    assert got.shape == (len(st.orders), lay.width)
+    assert features.has_texture == (name in dict((t[0], 1) for t in TEXTURED))
+    if not features.has_texture:
+        np.testing.assert_array_equal(got, want)
+        return
+    jlay = jax_layout(st.features, st.max_stops)
+    lanes = []  # the port's lane of each of JAX's lanes
+    for group, n in (("fill", 4), ("fr", 1), ("blend", 1), ("ft", 1), ("func", 1),
+                     ("layer", 1), ("cend", 1), ("clipped", 1), ("grad", 6),
+                     ("stops", 5 * st.max_stops)):
+        if getattr(jlay, group) >= 0:
+            lanes.extend(range(getattr(lay, group), getattr(lay, group) + n))
+    assert len(lanes) == want.shape[1] == jlay.width
+    np.testing.assert_array_equal(got[:, lanes], want)
+    np.testing.assert_array_equal(got[:, lay.tex:lay.tex + 10],
+                                  st.tex[st.pidx].view(np.int32))
+    np.testing.assert_array_equal(got[:, lay.ft], st.fill_type[st.pidx])
+    assert (st.fill_type[st.pidx] == 2).any()
 
 
 @pytest.mark.parametrize("build", [_clip_masks, _random_mixed(46), _random_mixed(57)],
@@ -302,7 +342,7 @@ def test_fold_cpu_dispatch_and_spans(monkeypatch):
     """CPU tensors take the plain fold; spans cover every valid unit."""
     args, _ = _fold_inputs(_clip_masks, 64, 64, monkeypatch)
     key_u, u_valid, src2_u, virt_u = args[:4]
-    rows, tiles_x, k_slots, features, ms = args[10:]
+    rows, tiles_x, k_slots, features, ms = args[10:15]
     ust, cnt = tile_spans(key_u, u_valid, rows, tiles_x, k_slots)
     assert int(cnt.sum()) == int(u_valid.sum())
     fargs = (ust, cnt, src2_u, virt_u, *args[4:10], tiles_x, features, ms)
@@ -349,7 +389,7 @@ def test_fold_is_bit_equal_to_op_by_op_numpy(monkeypatch):
     args, _ = _fold_inputs(_deep_stack, 32, 32, monkeypatch)
     key_u, u_valid, src2_u = args[:3]
     grid, ci, ca, tx_s, style_s, clear = args[4:10]
-    rows, tiles_x, k_slots, features, ms = args[10:]
+    rows, tiles_x, k_slots, features, ms = args[10:15]
     ust, cnt = tile_spans(key_u, u_valid, rows, tiles_x, k_slots)
     got = paint_fold_torch(ust, cnt, src2_u, None, grid, ci, ca, tx_s, style_s, clear,
                            tiles_x, features, ms).numpy()

@@ -5,10 +5,10 @@ oracle and the JAX `Renderer.render`.  Scenes are built in `forma_tpu`
 `convert.composition_from_jax`.  Max channel diff <= 1/255, the bar for a
 device backend (the HSL blend modes <= 5/255, random gradient/blend/clip
 scenes <= 2/255: the JAX package's own bars, `tests/test_differential.py:
-127`); the diagnostics vector must equal JAX's.  Every e2e scene but the
-texture one renders.  Also: the port imports no JAX, texture frames raise,
-`convert` carries the JAX package's frame state across, and no kernel
-launches on the CPU."""
+127`); the diagnostics vector must equal JAX's.  Every e2e scene renders
+(the texture one here and in `test_torch_texture.py`).  Also: the port
+imports no JAX, `convert` carries the JAX package's frame state across,
+and no kernel launches on the CPU."""
 
 import subprocess
 import sys
@@ -82,13 +82,13 @@ def test_solid_e2e_scene_matches_oracle(name):
     assert _max_diff(got, want) <= 1
 
 
-STYLED_E2E = [n for n, _ in all_scenes() if n not in SOLID_E2E and "texture" not in n]
+STYLED_E2E = [n for n, _ in all_scenes() if n not in SOLID_E2E]
 HSL_MODES = ("Hue", "Saturation", "Color", "Luminosity")
 
 
 @pytest.mark.parametrize("name", STYLED_E2E)
 def test_styled_e2e_scene_matches_oracle(name):
-    """The gradient, blend-mode and clipping e2e scenes."""
+    """The gradient, texture, blend-mode and clipping e2e scenes."""
     build = dict(all_scenes())[name]
     comp = Composition()
     build(comp)
@@ -101,7 +101,7 @@ def test_styled_e2e_scene_matches_oracle(name):
 
 
 def test_styled_e2e_scene_count():
-    assert len(SOLID_E2E) + len(STYLED_E2E) == len(list(all_scenes())) - 1 == 31
+    assert len(SOLID_E2E) + len(STYLED_E2E) == len(list(all_scenes())) == 32
 
 
 def _random_path(rng, w, h):
@@ -220,24 +220,6 @@ def test_import_leaves_jax_out():
     subprocess.run([sys.executable, "-c", code], check=True)
 
 
-def _texture_scene(comp):
-    from forma_tpu import AffineTransform as T, Image, Texture
-
-    image = Image.from_srgba([[255, 0, 0, 255]] * 4, 2, 2)
-    tex = Texture(transform=T(ux=0.1, uy=0.0, vx=0.0, vy=0.1, tx=0.0, ty=0.0), image=image)
-    comp.get_mut_or_insert_default(Order(0)).insert(_random_path(
-        np.random.default_rng(2), 64, 64)).set_props(
-        Props(func=Func.Draw(Style(fill=Fill.Texture(tex)))))
-
-
-@pytest.mark.parametrize("build", [_texture_scene])
-def test_unported_features_raise(build):
-    comp = Composition()
-    build(comp)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, item 9.4"):
-        Renderer("cpu").render(composition_from_jax(comp), 64, 64, CLEAR)
-
-
 def test_unported_entry_points_raise():
     comp = composition_from_jax(_circles(4))
     r = Renderer("cpu")
@@ -286,6 +268,10 @@ def test_no_kernel_launches_on_cpu():
         Renderer("cpu", expand=expand).render(comp, 64, 64, CLEAR)
     comp, clear = _random_styled_scene(0)
     Renderer("cpu").render(composition_from_jax(comp), 64, 64, clear)
+    comp = Composition()
+    dict(all_scenes())["tests__texture__cpu"](comp)
+    Renderer("cpu").render(composition_from_jax(comp), 64, 64, CLEAR)
     assert set(_build.LAUNCHES) == {
-        "expand", "rasterize", "grid", "fold", "fold_styled", "fold_clip"}
+        "expand", "rasterize", "grid", "fold", "fold_styled", "fold_tex", "fold_clip",
+        "texture_probe"}
     assert not any(_build.LAUNCHES.values())
