@@ -55,12 +55,29 @@ failure exits non-zero:
    its three modes against the plain version (bit-equal) at 8 blocks of
    32 tiles and 44 steps; then its entry point's measurement at the
    probe's paris shape (255 blocks), counters reset and read, each mode
-   checked and timed there as in phase 3, and the probe's window gather.
+   checked and timed there as in phase 3, and the probe's window gather;
+11. K8, the fold ablation (`forma_tpu_torch.probes.fold_ablate`) on the
+   TPU tool's paris-like inputs (seed 0: 465,747 units over 8,160 tiles),
+   built once: its six variants against the plain version (bit-equal) on
+   the first 8 blocks, `full` checked and timed at the full shape as in
+   phase 3, then its entry point's measurement (counters reset and read)
+   and each piece's cost beside K3 `fold` from phase 3;
+12. K6 and K7 (`probes.microbench`) at the TPU tool's sizes: K6's grouping
+   prep timed alone, each kernel against its plain version as in phase 3,
+   then the entry point's measurement with the counters reset and read;
+13. K9 (`probes.grid_scatter`), 2^20 segments in its two input modes, each
+   against the plain version as in phase 3 with its rate in M segments/s
+   beside K2's on the phase 3 frame, then the entry point's measurement
+   with the counters reset and read.
+   Phases 11-13 also time each kernel as 20 calls captured in one CUDA
+   graph (`ms_graph`, and the library call's where it allows a graph):
+   the device time alone, where `ms` of a ~20 us kernel reads its
+   wrapper's host rate; the entry points report that device time.
 
 The last three lines are a JSON object with per-kernel results (K3 once
 per specialisation: solid, styled, textured, clip; K5 in its atlas_rowsel
-mode), the card's name and power limit, and the status line
-`{"ok": true, "device": {...}}`.
+mode; K8 `full`; K9 `independent`), the card's name and power limit, and
+the status line `{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py --fold-timing DIR [--scene paris|styled|textured]
 
@@ -103,6 +120,14 @@ KERNELS = (
     ("fold_clip", "forma_tpu_torch/csrc/fold.cu", K3, "mix"),
     ("texture_probe", "forma_tpu_torch/csrc/texture_probe.cu",
      "tools/texture_fold_probe.py:157", "probe"),
+    ("fold_ablate", "forma_tpu_torch/csrc/fold_ablate.cu",
+     "tools/fold_kernel_ablate.py:153", "ablate"),
+    ("unit_stream", "forma_tpu_torch/csrc/microbench.cu",
+     "tools/tpu_microbench2.py:154", "micro"),
+    ("seg_loop", "forma_tpu_torch/csrc/microbench.cu",
+     "tools/tpu_microbench2.py:184", "micro"),
+    ("grid_scatter", "forma_tpu_torch/csrc/grid_scatter.cu",
+     "tools/pallas_scatter_probe.py:66", "scatter"),
 )
 PATHS = {
     "fused": ("rasterize", "grid", "fold"),
@@ -133,13 +158,19 @@ F32_OPS_PER_S = 67e12
 # csrc/texture_probe.cu per pixel and step: 9 for the coordinates (tx + k
 # included), 2 more for the base mode's texel or 6 (trunc and a 2-sided
 # clip per axis) for a sampling mode's, 4 to accumulate; per pixel once, 6
-# for the parameters.
+# for the parameters.  csrc/fold_ablate.cu per unit-pixel: K3's 29 with the
+# Over blend, coverage 7 and 1 add without it.  csrc/microbench.cu K6 per
+# unit-pixel: 3 (1 - c, the multiply, + c); K7 and K9 do no float
+# arithmetic.
 K4_F32_OPS_PER_SEGMENT = 198
 K3_F32_OPS_PER_UNIT_PIXEL = 29
 K3_GRAD_OPS, K3_STOP_OPS, K3_SEGMENT_OPS, K3_CLIP_OPS = 16, 1, 25, 2
 K3_TEX_OPS = 18
 K3_BLEND_OPS = (0, 3, 9, 21, 3, 3, 12, 15, 21, 51, 6, 12, 84, 84, 59, 59)
 K5_COORD_OPS, K5_BASE_OPS, K5_SAMPLE_OPS, K5_ACC_OPS, K5_PRM_OPS = 9, 2, 6, 4, 6
+K8_NO_BLEND_OPS = 8
+K6_F32_OPS_PER_UNIT_PIXEL = 3
+K8_LANES = 277  # u_mat lanes a K8 step reads: grid 256, carries 16, fill 4, rule 1
 
 def say(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
@@ -271,6 +302,29 @@ def probe_bytes(args, out) -> int:
     return tensor_bytes((info,) if mode == "base" else (info, atlas)) + tensor_bytes(out)
 
 
+def ablate_bytes(args, out) -> int:
+    """Bytes K8 must move: the 277 lanes of each row the fold addresses
+    (not the 384-lane padding, not the window's spare rows), blkinfo,
+    clear, the output."""
+    from forma_tpu_torch.probes import fold_ablate as k8
+
+    blkinfo, clear = args[1:3]
+    rows = k8.addressed_rows(blkinfo)
+    return 4 * rows * K8_LANES + tensor_bytes((blkinfo, clear)) + tensor_bytes(out)
+
+
+def kernel_bytes(name: str, args, out) -> int:
+    """Bytes the kernel must move on these inputs: each input read once and
+    each output written once, at the TPU function's widths."""
+    if name == "fold_ablate":
+        return ablate_bytes(args, out)
+    if name.startswith("fold"):
+        return fold_bytes(args, out)
+    if name == "texture_probe":
+        return probe_bytes(args, out)
+    return tensor_bytes(args) + tensor_bytes(out)
+
+
 def fold_unit_ops(args) -> torch.Tensor:
     """f32 operations per pixel of each unit K3 folds (data-dependent: its
     fill type and blend mode), int64 [units folded]."""
@@ -301,6 +355,12 @@ def f32_ops(name: str, args) -> int:
         # Segments in range: every live line's length, up to v_total vlines.
         assert int(v_total) == int(vline_ends[-1]) <= v_cap
         return K4_F32_OPS_PER_SEGMENT * int(params[:, 15].double().sum())
+    if name == "fold_ablate":
+        from forma_tpu_torch.probes import fold_ablate as k8
+
+        blend = k8.VARIANTS[args[3]][3]
+        per = K3_F32_OPS_PER_UNIT_PIXEL if blend else K8_NO_BLEND_OPS
+        return 256 * per * k8.addressed_rows(args[1])
     if name.startswith("fold"):
         return 256 * int(fold_unit_ops(args).sum())
     if name == "texture_probe":
@@ -308,33 +368,50 @@ def f32_ops(name: str, args) -> int:
         texel = K5_BASE_OPS if mode == "base" else K5_SAMPLE_OPS
         per_step = K5_COORD_OPS + texel + K5_ACC_OPS
         return 256 * info.shape[0] * (kmax * per_step + K5_PRM_OPS)
+    if name == "unit_stream":
+        return 256 * K6_F32_OPS_PER_UNIT_PIXEL * args[0].numel()
     return 0
 
 
 def library_call(name: str, args):
-    """(description, fn) of one PyTorch call computing most of the kernel's
-    function on the same inputs, or None.  Timed only: the port never
-    calls these."""
+    """(description, fn, capturable) of one PyTorch call computing most of
+    the kernel's function on the same inputs, or None; `capturable` says
+    whether it runs inside a CUDA graph (it does not synchronise with the
+    host).  Timed only: the port never calls these."""
     if name == "expand":
         params, vline_ends, _ = args
         n_v = torch.diff(vline_ends, prepend=vline_ends.new_zeros(1))
         total = int(vline_ends[-1])
         return ("torch.repeat_interleave(params, n_v, dim=0): the row gather "
                 "without j, the [16, V] layout or padding",
-                lambda: torch.repeat_interleave(params, n_v, dim=0, output_size=total))
+                lambda: torch.repeat_interleave(params, n_v, dim=0, output_size=total), True)
     if name == "grid":
         rid, cell, area, cover, _, _, run_cap = args
         idx = rid.long() * 256 + cell.long()
         val = (area * 65536 + cover).to(torch.int32)
         flat = torch.zeros(run_cap * 256, dtype=torch.int32, device=rid.device)
         return ("Tensor.index_add_ of the packed area|cover grid: without "
-                "rowcov or run keys", lambda: flat.index_add_(0, idx, val))
+                "rowcov or run keys", lambda: flat.index_add_(0, idx, val), True)
+    if name == "seg_loop":
+        (segs,) = args
+        # bincount reads the input's maximum back to the host: no graph.
+        return ("torch.bincount(segs, minlength=256): int64 counts, not the "
+                "f32 [2, 128]", lambda: torch.bincount(segs, minlength=256), False)
+    if name == "grid_scatter":
+        row, cell, val = args
+        idx = row.long() * 256 + cell.long()
+        flat = torch.zeros(256 * 256, dtype=torch.int32, device=row.device)
+        return ("Tensor.index_add_ of the flattened [256, 256] window",
+                lambda: flat.index_add_(0, idx, val), True)
     return None
 
 
-def check_kernel(name: str, kern, plain, args) -> dict:
+def check_kernel(name: str, kern, plain, args, graph: bool = False, **label) -> dict:
     """A kernel against its plain version on a frame's own inputs (bit-equal
-    required); returns the kernels line's numbers for it."""
+    required); returns the kernels line's numbers for it.  `graph` adds
+    the device time per call from CUDA graph replays (`ms_graph`, and
+    `library_ms_graph` where the library call allows a graph).  `label` is
+    printed with the numbers."""
     got = kern(*args)
     torch.cuda.synchronize()
     want = plain(*args)
@@ -347,20 +424,27 @@ def check_kernel(name: str, kern, plain, args) -> dict:
     plain_ms = time_ms(lambda: plain(*args), batches=3, per_batch=1)
     table_bytes = tensor_bytes(args) + tensor_bytes(got)
     port_bytes = tensor_bytes(args, True) + tensor_bytes(got, True)
-    nbytes = (fold_bytes(args, got) if name.startswith("fold")
-              else probe_bytes(args, got) if name == "texture_probe" else table_bytes)
+    nbytes = kernel_bytes(name, args, got)
     ops = f32_ops(name, args)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_OPS_PER_S * 1e3
     lib = library_call(name, args)
     library_ms = time_ms(lib[1]) if lib else None
+    graphs = {}
+    if graph:
+        from forma_tpu_torch.probes import time_ms_graph
+
+        graphs["ms_graph"] = time_ms_graph(lambda: kern(*args))
+        if lib and lib[2]:
+            graphs["library_ms_graph"] = time_ms_graph(lib[1])
     shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
     mode = {"mode": args[2]} if name == "texture_probe" else {}
-    say("kernel", name=name, **mode, max_abs_err=err, ms=f"{ms:.4f}", ms_sync=f"{ms_sync:.4f}",
+    say("kernel", name=name, **mode, **label, max_abs_err=err, ms=f"{ms:.4f}", ms_sync=f"{ms_sync:.4f}",
         host_us=f"{wrapper_us:.1f}", plain_ms=f"{plain_ms:.4f}", bytes=nbytes,
         table_bytes=table_bytes, port_layout_bytes=port_bytes, f32_ops=ops,
         bound_ms=f"{max(bytes_ms, ops_ms):.4f}",
         library_ms="none" if library_ms is None else f"{library_ms:.4f}",
+        **{k: f"{v:.4f}" for k, v in graphs.items()},
         input_shapes=str(shapes).replace(" ", ""))
     if lib:
         say("kernel", name=name, library_call=repr(lib[0]))
@@ -372,6 +456,7 @@ def check_kernel(name: str, kern, plain, args) -> dict:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
+        **graphs,
     }
 
 
@@ -560,6 +645,113 @@ def texture_probe(device) -> tuple:
     return {"mode": "atlas_rowsel", **out["atlas_rowsel"]}, launches
 
 
+def fold_ablation(device, k3: dict) -> tuple:
+    """Phase 11: K8's six variants against the plain version on the first 8
+    blocks of the TPU tool's inputs, `full` checked and timed at the full
+    shape, then its entry point's measurement with the counters reset and
+    read; each piece's cost beside K3 `fold` (`k3`, phase 3); returns
+    (the `full` numbers, launches)."""
+    from forma_tpu_torch.ops import _build
+    from forma_tpu_torch.probes import fold_ablate as k8
+
+    t = time.perf_counter()
+    u_mat, blkinfo = k8.paris_inputs()
+    say("ablate", inputs_build_s=f"{time.perf_counter() - t:.1f}", tiles=blkinfo.shape[0] * k8.TB,
+        units=k8.addressed_rows(blkinfo), u_mat_rows=u_mat.shape[0])
+    u_mat, blkinfo = u_mat.to(device), blkinfo.to(device)
+    clear = torch.ones(4, dtype=torch.float32, device=device)
+    cut = blkinfo[:8].contiguous()
+    for variant in k8.VARIANTS:
+        got = k8.fold_ablate(u_mat, cut, clear, variant)
+        torch.cuda.synchronize()
+        err = max_abs_err((got,), (k8.fold_ablate_torch(u_mat, cut, clear, variant),))
+        say("ablate", variant=variant, nblk=8, units=k8.addressed_rows(cut), max_abs_err=err)
+        if err != 0.0:
+            raise AssertionError(f"fold_ablate {variant}: differs from its plain version ({err})")
+    res = check_kernel("fold_ablate", k8.fold_ablate, k8.fold_ablate_torch,
+                       (u_mat, blkinfo, clear, "full"), graph=True, variant="full")
+    _build.reset_launches()
+    m = k8.measure((u_mat, blkinfo), device)
+    launches = dict(_build.LAUNCHES)
+    say("ablate", tiles=m["tiles"], units=m["units"], launches=launches["fold_ablate"],
+        **{f"{v}_ms": f"{m[v]:.4f}" for v in k8.VARIANTS})
+    say("k8", question="what each piece of a fold step costs, against K3 fold",
+        **{f"piece_{p}_ms": f"{ms:.4f}" for p, ms in k8.pieces(m).items()},
+        k3_fold_ms=f"{k3['ms']:.4f}", k3_fold_bound_ms=f"{k3['bound_ms']:.4f}",
+        full_bound_ms=f"{res['bound_ms']:.4f}")
+    if launches["fold_ablate"] < 1:
+        raise AssertionError("fold_ablate was never launched by its entry point")
+    return res, launches
+
+
+def microbenchmarks(device) -> tuple:
+    """Phase 12: K6 (its grouping prep timed alone) and K7 against their
+    plain versions at the TPU tool's sizes, then the entry point's
+    measurement with the counters reset and read; returns ({name:
+    numbers}, launches)."""
+    from forma_tpu_torch.ops import _build
+    from forma_tpu_torch.probes import microbench as mb
+
+    tile_of, cov = (x.to(device) for x in mb.unit_inputs())
+    perm, start = mb.group_units(tile_of, mb.T)
+    say("micro", kernel="unit_stream", units=mb.U, tiles=mb.T,
+        grouping_prep_ms=f"{time_ms(lambda: mb.group_units(tile_of, mb.T)):.4f}",
+        prep="torch.sort(tile_of, stable=True) + searchsorted")
+    out = {"unit_stream": check_kernel("unit_stream", mb.unit_stream_grouped,
+                                       mb.unit_stream_grouped_torch, (perm, start, cov),
+                                       graph=True)}
+    del tile_of, cov, perm, start
+    segs = mb.seg_inputs().to(device)
+    out["seg_loop"] = check_kernel("seg_loop", mb.seg_loop, mb.seg_loop_torch, (segs,),
+                                   graph=True)
+    del segs
+    _build.reset_launches()
+    m = mb.measure(device)
+    launches = dict(_build.LAUNCHES)
+    say("micro", launches={k: launches[k] for k in ("unit_stream", "seg_loop")},
+        **{f"{k}_ms": f"{v:.4f}" for k, v in m.items()},
+        unit_stream_M_units_per_s=f"{mb.U / m['unit_stream'] / 1e3:.1f}",
+        seg_loop_M_segments_per_s=f"{mb.S / m['seg_loop'] / 1e3:.1f}")
+    for name in ("unit_stream", "seg_loop"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was never launched by its entry point")
+    return out, launches
+
+
+def scatter_probe(device, k2_slots: int, k2_live: int, k2: dict) -> tuple:
+    """Phase 13: K9 in both input modes against the plain version, each
+    with its rate beside K2's on the phase 3 frame (`k2_slots` segment
+    slots, `k2_live` of them live, K2's numbers `k2`), then the entry
+    point's measurement with the counters reset and read; returns (the
+    `independent` numbers, launches)."""
+    from forma_tpu_torch.ops import _build
+    from forma_tpu_torch.probes import grid_scatter as k9
+
+    out = {}
+    for mode in k9.MODES:
+        args = tuple(t.to(device) for t in k9.scatter_inputs(mode))
+        out[mode] = check_kernel("grid_scatter", k9.grid_scatter, k9.grid_scatter_torch, args,
+                                 graph=True, mode=mode)
+        say("scatter", mode=mode, segments=args[0].numel(),
+            M_segments_per_s=f"{args[0].numel() / out[mode]['ms'] / 1e3:.1f}",
+            library_M_segments_per_s=f"{args[0].numel() / out[mode]['library_ms'] / 1e3:.1f}",
+            graph_M_segments_per_s=f"{args[0].numel() / out[mode]['ms_graph'] / 1e3:.1f}",
+            library_graph_M_segments_per_s=(
+                f"{args[0].numel() / out[mode]['library_ms_graph'] / 1e3:.1f}"))
+    say("scatter", k2_grid_ms=f"{k2['ms']:.4f}", k2_segment_slots=k2_slots,
+        k2_live_segments=k2_live,
+        k2_M_slots_per_s=f"{k2_slots / k2['ms'] / 1e3:.1f}",
+        k2_M_live_segments_per_s=f"{k2_live / k2['ms'] / 1e3:.1f}")
+    _build.reset_launches()
+    m = k9.measure(device)
+    launches = dict(_build.LAUNCHES)
+    say("scatter", launches=launches["grid_scatter"],
+        **{f"{mode}_ms": f"{m[mode]:.4f}" for mode in k9.MODES})
+    if launches["grid_scatter"] < 1:
+        raise AssertionError("grid_scatter was never launched by its entry point")
+    return {"mode": "independent", **out["independent"]}, launches
+
+
 def fold_timing(root: str, scene: str) -> int:
     """`--fold-timing DIR`: K3 on one frame's own inputs, with the port of
     the checkout in DIR."""
@@ -639,7 +831,9 @@ def main() -> int:
         say("paris", expand=path, first_frame_s=f"{time.perf_counter() - t:.2f}",
             caps=tuple(r._caps), regrows=r.regrow_count)
     kres = check_kernels({**taps["fused"], "expand": taps["split"]["expand"]})
-    del taps
+    rid, _, area, cover = taps["fused"]["grid"][:4]
+    k2_slots, k2_live = rid.numel(), int(((area != 0) | (cover != 0)).sum())
+    del taps, rid, area, cover
 
     # 4. circles on the card vs the port on the CPU
     circles_vs_cpu(device)
@@ -667,6 +861,13 @@ def main() -> int:
     say("k5", question="marginal cost of sampling textures in the fold",
         fold_tex_minus_fold_ms=f"{kres['fold_tex']['ms'] - kres['fold']['ms']:.4f}",
         fold_tex_ms=f"{kres['fold_tex']['ms']:.4f}", fold_ms=f"{kres['fold']['ms']:.4f}")
+
+    # 11. K8; 12. K6 and K7; 13. K9
+    kres["fold_ablate"], launches["ablate"] = fold_ablation(device, kres["fold"])
+    micro, launches["micro"] = microbenchmarks(device)
+    kres.update(micro)
+    kres["grid_scatter"], launches["scatter"] = scatter_probe(
+        device, k2_slots, k2_live, kres["grid"])
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -40,8 +40,9 @@ LAUNCHES = {
     "expand": 0, "rasterize": 0, "grid": 0,
     # K3, one counter per specialisation (`fold_kernel.variant`)
     "fold": 0, "fold_styled": 0, "fold_tex": 0, "fold_clip": 0,
-    # K5, the texture-fold probe (`probes.texture_fold`)
-    "texture_probe": 0,
+    # K5-K9, the probes (`probes.*`)
+    "texture_probe": 0, "fold_ablate": 0, "unit_stream": 0, "seg_loop": 0,
+    "grid_scatter": 0,
 }
 
 _P = ctypes.c_void_p
@@ -53,6 +54,10 @@ _SIGNATURES = {
     "forma_fold": [_P] * 11 + [_I64] * 4 + [_P, _P, _I64, _I64, _P],
     "forma_rasterize": [_P] * 3 + [_I64] * 8 + [_P, _P, _P],
     "forma_texture_probe": [_P, _P] + [_I64] * 5 + [_P, _P],
+    "forma_fold_ablate": [_P] * 3 + [_I64] * 4 + [_P, _P],
+    "forma_unit_stream": [_P] * 3 + [_I64, _P, _P],
+    "forma_seg_loop": [_P, _I64, _I64, _P, _P, _P],
+    "forma_grid_scatter": [_P] * 3 + [_I64] * 2 + [_P, _P, _P],
 }
 
 _lib = None
@@ -159,12 +164,17 @@ def check(t: torch.Tensor, name: str, dtype, shape) -> None:
     """Wrapper argument check: CUDA device, dtype, shape, contiguity."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    check_shape(t, name, dtype, shape)
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_shape(t: torch.Tensor, name: str, dtype, shape) -> None:
+    """Wrapper argument check on any device: dtype and shape."""
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
 
 
 def check_aligned(t: torch.Tensor, name: str, nbytes: int) -> None:

@@ -273,5 +273,5 @@ def test_no_kernel_launches_on_cpu():
     Renderer("cpu").render(composition_from_jax(comp), 64, 64, CLEAR)
     assert set(_build.LAUNCHES) == {
         "expand", "rasterize", "grid", "fold", "fold_styled", "fold_tex", "fold_clip",
-        "texture_probe"}
+        "texture_probe", "fold_ablate", "unit_stream", "seg_loop", "grid_scatter"}
     assert not any(_build.LAUNCHES.values())
