@@ -21,8 +21,14 @@ failure exits non-zero:
    calls), the bound from the bytes (at the TPU function's 32-bit widths;
    for K3 only the rows the fold addresses, with the full capacity tables
    and the int64 layout the port moves printed beside them) and f32
-   operations of these inputs, and the time of one PyTorch library call
-   that computes most of the same function, where there is one;
+   operations of these inputs (at the card's rate for f32 operations
+   that issue alone, since every kernel is built with --fmad=false; the
+   bound at the data sheet's FMA rate is printed beside it), and the time
+   of one PyTorch library call that computes most of the same function,
+   where there is one; and K3's tile depths on the frame (max, median,
+   p99, units folded, the virtual share) with a list-scheduling model's
+   unit-steps for the card's block slots (8 and 12 per SM) taking the
+   tiles in index order and deepest first (`fold_kernel.tile_order`);
 4. the circles configuration (64 circles, 256x256, fixed capacities)
    through `Renderer.render` on the card, against the same composition
    rendered by the port on the CPU, every kernel's plain version (max
@@ -34,7 +40,8 @@ failure exits non-zero:
    version on the card (max channel diff <= 1);
 6. paris-30k-styled at 1920x1080 (linear-gradient buildings, Screen-
    blended roads, radial-gradient parks): K3's styled specialisation on
-   the frame's own inputs against its plain version, as in phase 3; then
+   the frame's own inputs against its plain version and its tile depths,
+   as in phase 3; then
    the frame through `Renderer.render` as in phase 5 (counters, warm-up
    and 5 timed frames, peak memory) against the plain path on the card;
 7. the styled mix (`scenes.styled_mix`: 400 layers at 512x512 with
@@ -79,18 +86,22 @@ per specialisation: solid, styled, textured, clip; K5 in its atlas_rowsel
 mode; K8 `full`; K9 `independent`), the card's name and power limit, and
 the status line `{"ok": true, "device": {...}}`.
 
-    python3 chip_smoke.py --fold-timing DIR [--scene paris|styled|textured]
+    python3 chip_smoke.py --fold-timing DIR [DIR ...] [--scene paris|styled|textured|mix]
 
-times K3 alone instead, on one paris-30k (or paris-30k-styled, or
-paris-30k-textured) frame's own inputs, with the port of the checkout in
-DIR (for example a parent commit unpacked with `git archive`), in both ways
-above and with the wrapper's host microseconds: run it for two trees in one
-call to compare them.
+times K3 alone instead, on one paris-30k (or paris-30k-styled,
+paris-30k-textured, or styled-mix) frame's own inputs as this checkout's port records
+them, through the port of the checkout in each DIR in turn (for example a
+parent commit unpacked with `git archive`; give them as parent, change,
+change, parent), in both ways above and with the wrapper's host
+microseconds, each output held bit-equal to this checkout's plain
+version; `tile_order` is timed alone first.
 """
 
 from __future__ import annotations
 
 import argparse
+import heapq
+import importlib
 import json
 import os
 import shutil
@@ -144,7 +155,16 @@ PARIS_SCENES = {"paris": "paris30k", "styled": "paris30k_styled",
 
 # H100 SXM peaks (NVIDIA's data sheet, at the full 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+# f32 operations per second when each add or multiply issues alone: 128
+# f32 lanes x 132 SMs x 1.98 GHz.  Every kernel here is built with
+# --fmad=false, so this is the rate the bounds use; the data sheet's 67
+# TFLOP/s counts a fused multiply-add as two and is printed beside it.
+F32_OPS_PER_S = 128 * 132 * 1.98e9
+F32_FMA_FLOPS_PER_S = 67e12
+# Block slots per SM in the list-scheduling model of K3's tile order: 8
+# (blocks of 256 threads, one pixel each, as K3 ran before its tiles were
+# ordered) and 12 (`fold.cu` now: 128 threads, at most 40 registers).
+K3_BLOCKS_PER_SM = (8, 12)
 # f32 operations per unit of work, counted from the kernel sources:
 # csrc/rasterize.cu per pixel segment in range (two float-float `find`s of
 # 88 ops each, 2 clamps, 4 endpoints of 5 ops); csrc/fold.cu per unit and
@@ -428,6 +448,7 @@ def check_kernel(name: str, kern, plain, args, graph: bool = False, **label) -> 
     ops = f32_ops(name, args)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_OPS_PER_S * 1e3
+    fma_rate_ms = ops / F32_FMA_FLOPS_PER_S * 1e3
     lib = library_call(name, args)
     library_ms = time_ms(lib[1]) if lib else None
     graphs = {}
@@ -442,7 +463,8 @@ def check_kernel(name: str, kern, plain, args, graph: bool = False, **label) -> 
     say("kernel", name=name, **mode, **label, max_abs_err=err, ms=f"{ms:.4f}", ms_sync=f"{ms_sync:.4f}",
         host_us=f"{wrapper_us:.1f}", plain_ms=f"{plain_ms:.4f}", bytes=nbytes,
         table_bytes=table_bytes, port_layout_bytes=port_bytes, f32_ops=ops,
-        bound_ms=f"{max(bytes_ms, ops_ms):.4f}",
+        bound_ms=f"{max(bytes_ms, ops_ms):.4f}", bytes_ms=f"{bytes_ms:.4f}",
+        ops_ms=f"{ops_ms:.4f}", bound_ms_at_fma_rate=f"{max(bytes_ms, fma_rate_ms):.4f}",
         library_ms="none" if library_ms is None else f"{library_ms:.4f}",
         **{k: f"{v:.4f}" for k, v in graphs.items()},
         input_shapes=str(shapes).replace(" ", ""))
@@ -486,6 +508,39 @@ def check_fold(name: str, args) -> dict:
         raise AssertionError(f"{name}: the frame's features {args[11]} select "
                              f"{fk.variant(args[11])}")
     return check_kernel(name, fk.paint_fold, fk.paint_fold_torch, args)
+
+
+def list_schedule_steps(cnt, order, slots: int) -> int:
+    """Unit-steps until the last tile ends when `slots` block slots take
+    the tiles in `order`, each as soon as a slot frees, one step per unit
+    (the model of the card's block scheduler behind `fold_depths`)."""
+    heap = [0] * slots
+    for depth in cnt[order].tolist():
+        heapq.heapreplace(heap, heap[0] + depth)
+    return max(heap)
+
+
+def fold_depths(label: str, args) -> None:
+    """K3's tile depths on a frame's own inputs, and the list-scheduling
+    model's unit-steps for the card's block slots in index order and
+    deepest first (`tile_order`), beside the ideal (units over slots)."""
+    from forma_tpu_torch.ops import fold_kernel as fk
+
+    cnt = args[1]
+    n_units, _, virt = fold_units(args)
+    order = fk.tile_order(cnt).long().cpu()
+    c = cnt.long().cpu()
+    p50, p99 = np.percentile(c.numpy(), [50, 99])
+    model = {}
+    for per_sm in K3_BLOCKS_PER_SM:
+        slots = per_sm * torch.cuda.get_device_properties(0).multi_processor_count
+        model[f"slots_{slots}_steps_index_order"] = list_schedule_steps(
+            c, torch.arange(c.numel()), slots)
+        model[f"slots_{slots}_steps_deepest_first"] = list_schedule_steps(c, order, slots)
+        model[f"slots_{slots}_steps_ideal"] = f"{n_units / slots:.1f}"
+    say(label, k3_tiles=c.numel(), k3_units=n_units, depth_max=int(c.max()),
+        depth_p50=f"{p50:g}", depth_p99=f"{p99:g}",
+        virtual_share=f"{float(virt.double().mean()):.4f}", **model)
 
 
 def circles_vs_cpu(device) -> None:
@@ -577,6 +632,7 @@ def paris_variant(device, label: str, counter: str) -> tuple:
     torch.cuda.synchronize()
     say(label, first_frame_s=f"{time.perf_counter() - t:.2f}", caps=tuple(r._caps),
         regrows=r.regrow_count, features=str(taps["fold"][11]).replace(" ", ""))
+    fold_depths(label, taps["fold"])
     res = check_fold(counter, taps["fold"])
     del taps
     ref, _ = r.render_device(comp, PARIS_W, PARIS_H, clear, plain=True)
@@ -752,43 +808,67 @@ def scatter_probe(device, k2_slots: int, k2_live: int, k2: dict) -> tuple:
     return {"mode": "independent", **out["independent"]}, launches
 
 
-def fold_timing(root: str, scene: str) -> int:
-    """`--fold-timing DIR`: K3 on one frame's own inputs, with the port of
-    the checkout in DIR."""
-    sys.path.insert(0, os.path.abspath(root))
-    import forma_tpu_torch
+def fold_timing(roots, scene: str) -> int:
+    """`--fold-timing DIR [DIR ...]`: K3 on one frame's own inputs, recorded
+    by this checkout's port, through the port of the checkout in each DIR
+    in turn, each output held bit-equal to this checkout's plain version."""
     from forma_tpu_torch import Color, Composition, Renderer
     from forma_tpu_torch.demos import scenes
     from forma_tpu_torch.ops import fold_kernel as fk
+    from forma_tpu_torch.probes import time_ms_graph
 
     comp = Composition()
-    getattr(scenes, PARIS_SCENES[scene])(comp, PARIS_W, PARIS_H)
+    if scene == "mix":
+        w, h = MIX_W, MIX_H
+        scenes.styled_mix(comp, 400, w, h)
+    else:
+        w, h = PARIS_W, PARIS_H
+        getattr(scenes, PARIS_SCENES[scene])(comp, w, h)
     taps = {}
     Renderer(torch.device("cuda", 0)).render_device(
-        comp, PARIS_W, PARIS_H, Color(1.0, 1.0, 1.0, 1.0), taps=taps)
+        comp, w, h, Color(1.0, 1.0, 1.0, 1.0), taps=taps)
     args = taps["fold"]
-    fn = lambda: fk.paint_fold(*args)  # noqa: E731
-    say("fold-timing", port=os.path.dirname(forma_tpu_torch.__file__), scene=scene,
-        card=repr(gpu_record()),
-        ms=f"{time_ms(fn):.4f}", ms_sync=f"{time_ms_sync(fn):.4f}",
-        host_us=f"{host_us(fn):.1f}")
+    want = fk.paint_fold_torch(*args)
+    order = lambda: fk.tile_order(args[1])  # noqa: E731
+    say("fold-timing", scene=scene, card=repr(gpu_record()),
+        tile_order_ms=f"{time_ms(order):.4f}",
+        tile_order_ms_graph=f"{time_ms_graph(order):.4f}")
+    ports = {}
+    for root in map(os.path.abspath, roots):
+        if root not in ports:
+            # A fresh import of the package from `root`.
+            for name in [m for m in sys.modules if m.split(".")[0] == "forma_tpu_torch"]:
+                del sys.modules[name]
+            sys.path.insert(0, root)
+            ports[root] = importlib.import_module("forma_tpu_torch.ops.fold_kernel")
+            sys.path.remove(root)
+        fold = ports[root].paint_fold
+        fn = lambda: fold(*args)  # noqa: E731
+        got = fn()
+        torch.cuda.synchronize()
+        err = max_abs_err((got,), (want,))
+        say("fold-timing", port=root, scene=scene, max_abs_err=err,
+            ms=f"{time_ms(fn):.4f}", ms_sync=f"{time_ms_sync(fn):.4f}",
+            ms_graph=f"{time_ms_graph(fn):.4f}", host_us=f"{host_us(fn):.1f}")
+        if err != 0.0:
+            raise AssertionError(f"{root}: K3 differs from the plain version ({err})")
     return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--fold-timing", metavar="DIR",
-                    help="time K3 alone with the port of the checkout in DIR")
-    ap.add_argument("--scene", choices=sorted(PARIS_SCENES), default="paris",
+    ap.add_argument("--fold-timing", metavar="DIR", nargs="+",
+                    help="time K3 alone with the port of the checkout in each DIR")
+    ap.add_argument("--scene", choices=sorted(PARIS_SCENES) + ["mix"], default="paris",
                     help="the frame whose K3 inputs --fold-timing uses")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a CUDA card",
               file=sys.stderr)
         return 2
+    sys.path.insert(0, REPO)
     if opts.fold_timing:
         return fold_timing(opts.fold_timing, opts.scene)
-    sys.path.insert(0, REPO)
     from forma_tpu_torch import Color, Composition, Renderer
     from forma_tpu_torch.demos import scenes
     from forma_tpu_torch.ops import _build
@@ -830,6 +910,7 @@ def main() -> int:
         torch.cuda.synchronize()
         say("paris", expand=path, first_frame_s=f"{time.perf_counter() - t:.2f}",
             caps=tuple(r._caps), regrows=r.regrow_count)
+    fold_depths("paris", taps["fused"]["fold"])
     kres = check_kernels({**taps["fused"], "expand": taps["split"]["expand"]})
     rid, _, area, cover = taps["fused"]["grid"][:4]
     k2_slots, k2_live = rid.numel(), int(((area != 0) | (cover != 0)).sum())

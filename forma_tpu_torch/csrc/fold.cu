@@ -6,17 +6,20 @@
 // expansion and exclusive cover prefix done as byte-split bf16 one-hot
 // matmuls and every blend mode of the frame computed and selected.  Here:
 //
-//   one block per tile, 256 threads, one pixel each; the pixel's RGBA (and,
-//   for clip frames, its clip mask) stays in registers over the tile's whole
-//   unit list (no depth cap and no shared memory that grows with it);
+//   one block per tile, 128 threads, two horizontally adjacent pixels
+//   each; the pixels' RGBA (and, for clip frames, their clip masks) stay in
+//   registers over the tile's whole unit list (no depth cap);
 //   unit k of tile t is ust[t] + k; its run r = src2[unit] addresses the
 //   per-run tables directly (grid row, carry_in, carry_after, run tile x,
 //   style row), so no unit matrix is ever gathered;
 //   a unit is virtual when tx_s[r] differs from the tile's own x: it takes
-//   no grid and carry_after[r]; a real unit takes carry_in[r];
+//   no grid and carry_after[r]; a real unit takes carry_in[r].  This holds
+//   only for presorted units, where src_u == src2_u (ROADMAP.md section 2,
+//   item 1a: the assembly mode reads the grid row at src_u instead);
 //   the exclusive cover prefix along each 16-pixel row is an integer warp
-//   scan (__shfl_up_sync over 16-lane halves: one warp holds two rows);
-//   all 256 threads handle the same unit, so its style (fill type, blend
+//   scan of the pairs' sums (__shfl_up_sync over 8-lane groups: one warp
+//   holds four rows) plus one add inside the thread;
+//   all 128 threads handle the same unit, so its style (fill type, blend
 //   mode, clip function) is uniform across the block: the fill and the
 //   blend mode are branches on the unit's codes with no divergence, and
 //   only the selected mode is computed, where the TPU computes every mode
@@ -32,10 +35,48 @@
 //   a texture fill (fill type 2; paint.py:_texture_at, which the JAX
 //   package runs on its XLA wave fold, never in the Pallas kernel) samples
 //   the linear f32 atlas inside the fold, as forma's GPU painter does in
-//   its one kernel: a texture unit's 10 texture lanes are broadcast loads
-//   behind the fill-type branch, the texel one 16-byte float4 load per
-//   pixel through the cache, at int64 offsets (the atlas reaches 4096 x
-//   4096 texels, 256 MB).
+//   its one kernel: the texel is one 16-byte float4 load per pixel through
+//   the cache, at int64 offsets (the atlas reaches 4096 x 4096 texels,
+//   256 MB).
+//
+// What bounds it on the H100, and what the design does about each:
+//
+//   1. The tail of deep tiles.  Tile depths are skewed (paris-30k@1080p:
+//      median 38 units, max 250) and the deepest sit in the frame's last
+//      tile rows, so in index order they start last and the card idles
+//      behind them.  The wrapper passes the tiles deepest first (`order`,
+//      fold_kernel.tile_order, computed on the device) to the styled,
+//      textured and clip folds when they do not all fit the card at once;
+//      block b folds tile order[b] and writes it at its own place.  The
+//      solid fold's steps are cheap enough that the sort would cost more
+//      than the tail it removes, so it takes index order.
+//   2. The chain of dependent loads per unit (unit -> src2 -> run -> tx_s
+//      -> grid, carry and style rows).  The block walks its units in chunks
+//      of kChunk: one coalesced pass loads src2 and tx_s of the chunk, a
+//      second, every thread taking a share, copies each unit's carry row
+//      (carry_in or carry_after by virtuality: 16 i32) and its whole style
+//      row (gradient, stop and texture lanes included) into shared memory;
+//      a step reads them as shared broadcasts and its grid words at an
+//      address known before the chunk's first step.
+//   3. Instructions per unit-pixel: the fold is bound by their issue (each
+//      f32 op issues alone under --fmad=false).  Two pixels per thread pay
+//      a unit's own work (its flags, carry and style lanes, the fill-type
+//      and blend branches, the loop) once for both, and the scan takes 3
+//      shuffles for 16 pixels where one pixel per thread took 4.  A virtual
+//      unit's cover is 0 across the block, so it branches past the grid
+//      load and the scan: its exclusive prefix is 0 and ce_exc its carry.
+//   A ring of cp.async copies that kept the next units' grid rows in
+//   flight lost on the card (PERF.md section 6): 10-12 blocks of 4 warps
+//   per SM hide the grid load's latency, and the ring's own instructions
+//   cost more than it hid.  What is left is the issue of each step's
+//   instructions (the scan, the coverage and Over chains; a styled unit
+//   adds ~90 f32 ops per pixel for the gradient, stop chain and blend, a
+//   texture unit 18 and one dependent 16-byte texel load).  Dynamic shared
+//   memory per block: the chunk's carries (2 KB), runs and flags, and
+//   kChunk style rows (4 * kChunk * width bytes), above 48 KB only after
+//   cudaFuncSetAttribute; rows past ~1,790 lanes (gradients of ~350 stops)
+//   pass a block's 227 KB, and the launch fails with its CUDA error.  Each
+//   tile's pixels are written once, two per thread in 8-byte stores.
 //
 // Bit-equality with the plain PyTorch version (fold_kernel.paint_fold_torch):
 // every f32 op is an explicitly rounded intrinsic (and --fmad=false) in the
@@ -46,14 +87,8 @@
 // masks exactly, since padded stops (last colour, +inf) make local_t NaN or
 // inf outside them; a texture coordinate converts to int as XLA does (NaN
 // -> 0, saturating: __float2int_rz), and the texel index clamps into the
-// atlas as JAX's gather does.
-//
-// Bound on the H100: latency of the dependent per-unit loads (unit -> run ->
-// grid row, style row) times the tile depth; the grid row read is one
-// coalesced 1 KB load per unit, the style row a broadcast.  A styled unit
-// adds ~90 f32 ops per pixel (gradient + stop chain + blend) to the 29 of a
-// solid/Over unit, a texture unit 18 and one dependent 16-byte texel load.
-// Each tile's pixels are written once.
+// atlas as JAX's gather does.  Units fold in the same order; the cover
+// prefix is an integer sum, exact in any order.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -198,7 +233,8 @@ __device__ Rgb blend(int mode, Rgb d, Rgb s) {
 }
 
 // paint.py:_gradient_at (paint_pallas.py:_gradient_fill) at one pixel.
-__device__ void gradient(const int32_t* __restrict__ gm,
+// Inlined, so the stop lanes load from shared memory by 32-bit addresses.
+__device__ __forceinline__ void gradient(const int32_t* __restrict__ gm,
                          const int32_t* __restrict__ sp, int ms, float xg,
                          float yg, float& c0, float& c1, float& c2, float& c3) {
   const float gtype = F(gm[0]), sx = F(gm[1]), sy = F(gm[2]);
@@ -254,17 +290,80 @@ __device__ __forceinline__ float4 texel(const Tex& tex, const float* tl,
   return __ldg(tex.atlas + row * tex.aw + col);
 }
 
+constexpr int kThreads = 128;  // one per two horizontally adjacent pixels
+constexpr int kChunk = 32;     // units staged in shared memory at once
+constexpr int kVirt = 1;       // staged unit flags
+constexpr int kUnclip = 2;
+
+// Dynamic shared memory of a block, in 4-byte words: the chunk's carry
+// rows [kChunk, 16], runs and flags [kChunk] each, style rows [kChunk,
+// width].
+constexpr int smem_words(int width) {
+  return kChunk * 16 + 2 * kChunk + kChunk * width;
+}
+
+struct Px {
+  float r, g, b, a;
+};
+
+// A pixel's coverage from its exclusive cover prefix and area.
+__device__ __forceinline__ float coverage(int32_t ce_exc, int32_t area, bool fr_eo) {
+  const float recip = 1.0f / kPDA;
+  const int32_t dacc = kPDW * ce_exc + area;
+  const float nz =
+      fminf(fmaxf(fabsf(__fmul_rn(__int2float_rn(dacc), recip)), 0.0f), 1.0f);
+  const int32_t folded = kPDA - abs((dacc & (2 * kPDA - 1)) - kPDA);
+  const float eo = __fmul_rn(__int2float_rn(folded), recip);
+  return fr_eo ? eo : nz;
+}
+
+// The unit's fill at one pixel: solid, gradient or texel.
+template <bool kStyled, bool kTex>
+__device__ __forceinline__ Px fill_at(const int32_t* st, const Lay& lay,
+                                      const Tex& tex, int32_t fill_type,
+                                      float xg, float yg) {
+  Px f = {F(st[0]), F(st[1]), F(st[2]), F(st[3])};
+  if (kStyled && fill_type == 1) {
+    gradient(st + lay.grad, st + lay.stops, lay.ms, xg, yg, f.r, f.g, f.b, f.a);
+  }
+  if (kTex && tex.off >= 0 && fill_type == 2) {
+    float tl[10];
+#pragma unroll
+    for (int i = 0; i < 10; ++i) tl[i] = F(st[tex.off + i]);
+    const float4 c = texel(tex, tl, xg, yg);
+    f = {c.x, c.y, c.z, c.w};
+  }
+  return f;
+}
+
+// The unit's blend mode, then Over, on one pixel.
+template <bool kStyled>
+__device__ __forceinline__ void over(Px& d, const Px& f, float src_a,
+                                     bool has_blend, int32_t mode) {
+  Rgb bl = {f.r, f.g, f.b};
+  if (kStyled && has_blend) bl = blend(mode, {d.r, d.g, d.b}, {f.r, f.g, f.b});
+  const float inv_dst_a = sub(1.0f, d.a);
+  const float inv_dst_a_src_a = mul(inv_dst_a, src_a);
+  const float inv_src_a = sub(1.0f, src_a);
+  const float dst_a_src_a = mul(d.a, src_a);
+  d.r = add(mul(d.r, inv_src_a),
+            add(mul(f.r, inv_dst_a_src_a), mul(bl.r, dst_a_src_a)));
+  d.g = add(mul(d.g, inv_src_a),
+            add(mul(f.g, inv_dst_a_src_a), mul(bl.g, dst_a_src_a)));
+  d.b = add(mul(d.b, inv_src_a),
+            add(mul(f.b, inv_dst_a_src_a), mul(bl.b, dst_a_src_a)));
+  d.a = add(mul(d.a, inv_src_a), src_a);
+}
+
 // kStyled: gradients and blend modes; kTex (implies kStyled): texture
-// fills; kClip (implies kTex): clip masks.  Register caps for occupancy:
-// the fold is bound by the latency of its dependent per-unit loads.  The
-// solid, styled and textured folds are held to 32 registers (8 blocks of
-// 256 threads per SM; the styled fold otherwise takes 40 and 6 blocks),
-// the clip fold to 40 (6 blocks).
+// fills; kClip (implies kTex): clip masks.  Register caps: 40 for the
+// solid and textured folds (12 blocks of 128 threads per SM), 48 for the
+// styled and clip folds (10 blocks), which spill at 40.
 template <bool kStyled, bool kClip, bool kTex>
-__global__ void __launch_bounds__(256, kClip ? 6 : 8)
-fold_kernel(const int32_t* __restrict__ ust, const int32_t* __restrict__ cnt,
-            const int32_t* __restrict__ src2, const int32_t* __restrict__ virt,
-            const int32_t* __restrict__ grid,
+__global__ void __launch_bounds__(kThreads, (kStyled && !kTex) || kClip ? 10 : 12)
+fold_kernel(const int32_t* __restrict__ order, const int32_t* __restrict__ ust,
+            const int32_t* __restrict__ cnt, const int32_t* __restrict__ src2,
+            const int32_t* __restrict__ virt, const int32_t* __restrict__ grid,
             const int32_t* __restrict__ carry_in,
             const int32_t* __restrict__ carry_after,
             const int32_t* __restrict__ tx_s,
@@ -272,129 +371,138 @@ fold_kernel(const int32_t* __restrict__ ust, const int32_t* __restrict__ cnt,
             const float* __restrict__ clear, Lay lay, int64_t tiles_x,
             int64_t run_cap, int64_t n_units, float* __restrict__ out,
             Tex tex) {
-  const int64_t t = blockIdx.x;
-  const int p = threadIdx.x;  // pixel: y = p >> 4, x = p & 15
-  const int py = p >> 4;
-  const int px = p & 15;
-  const int tile_tx = (int)(t % tiles_x);
-  const float recip = 1.0f / kPDA;
-  // Integer global pixel coordinates (paint_pallas.py:254-262).
+  extern __shared__ int32_t smem[];
+  int32_t* carry_s = smem;
+  int32_t* run_s = carry_s + kChunk * 16;
+  int32_t* flag_s = run_s + kChunk;
+  int32_t* style_s = flag_s + kChunk;
+  // A solid/Over frame's row is rgba | fill rule at compile-time offsets.
+  const int sw = kStyled ? lay.width : 5;
+
+  // Tile, unit and run indices fit i32 (the tables are i32-indexed); 64
+  // bits only in the address arithmetic, to spare registers.
+  const int t = order != nullptr ? order[blockIdx.x] : blockIdx.x;
+  const int q = threadIdx.x;  // pixels 2q, 2q + 1: y = q >> 3, x = 2 (q & 7) + {0, 1}
+  const int py = q >> 3;
+  const int qx = q & 7;
+  const int tile_tx = t % (int)tiles_x;
+  // Integer global pixel coordinates (paint_pallas.py:254-262) of the first
+  // pixel; the second's is xg + 1, exact below 2^24.
   float xg = 0.0f, yg = 0.0f;
   if (kStyled) {
-    xg = __int2float_rn(tile_tx * 16 + px);
-    yg = __int2float_rn((int)(t / tiles_x) * 16 + py);
+    xg = __int2float_rn(tile_tx * 16 + 2 * qx);
+    yg = __int2float_rn(t / (int)tiles_x * 16 + py);
   }
-  float clipm = 0.0f;
+  float clipm0 = 0.0f, clipm1 = 0.0f;
   int32_t clip_last = -1;
 
-  float dr = clear[0], dg = clear[1], db = clear[2], da = clear[3];
+  Px d0 = {clear[0], clear[1], clear[2], clear[3]};
+  Px d1 = d0;
   const int n = cnt[t];
-  const int64_t base = ust[t];
-  for (int k = 0; k < n; ++k) {
-    int64_t u = base + k;
-    if (u > n_units - 1) u = n_units - 1;
-    int64_t r = src2[u];
-    r = r < 0 ? 0 : (r > run_cap - 1 ? run_cap - 1 : r);
-    const bool is_virt = tx_s[r] != tile_tx;
+  const int base = ust[t];
 
-    int32_t cover = 0, area = 0;
-    if (!is_virt) {
-      const int32_t g = grid[r * 256 + p];
-      cover = (int32_t)(int16_t)(g & 0xFFFF);
-      area = (int32_t)((uint32_t)g - (uint32_t)cover) >> 16;
-    }
-    const int32_t c16 =
-        is_virt ? carry_after[r * 16 + py] : carry_in[r * 16 + py];
-
-    // Inclusive scan of cover over the 16 pixels of this row.
-    int32_t inc = cover;
-#pragma unroll
-    for (int off = 1; off < 16; off <<= 1) {
-      const int32_t y = __shfl_up_sync(0xffffffffu, inc, off, 16);
-      if (px >= off) inc += y;
-    }
-    const int32_t ce_exc = c16 + (inc - cover);
-
-    const int32_t dacc = kPDW * ce_exc + area;
-    // A solid/Over frame's row is rgba | fill rule at compile-time offsets.
-    const int32_t* st = style + r * (kStyled ? lay.width : 5);
-    const bool fr_eo = st[kStyled ? lay.fr : 4] != 0;
-    const float nz =
-        fminf(fmaxf(fabsf(__fmul_rn(__int2float_rn(dacc), recip)), 0.0f), 1.0f);
-    const int32_t folded = kPDA - abs((dacc & (2 * kPDA - 1)) - kPDA);
-    const float eo = __fmul_rn(__int2float_rn(folded), recip);
-    const float cov = fr_eo ? eo : nz;
-
-    bool draw = true;
-    if (kClip) {
-      const int32_t func = st[lay.func];
-      draw = func == 0;
-      const bool is_clip_unit = func == 1;
-      // Clip expiry precedes everything (painter/mod.rs:302-306).
-      if (clip_last >= 0 && clip_last < st[lay.layer]) clip_last = -1;
-      if (is_clip_unit && clip_last < 0) clip_last = st[lay.cend];
-      if (is_clip_unit) clipm = cov;
-    }
-
-    float fr = F(st[0]), fg = F(st[1]), fb = F(st[2]);
-    float fa = F(st[3]);
-    // Lane 0 stands in for an absent fill-type or blend lane, so both loads
-    // issue with the unit's other style loads instead of behind a branch.
-    const int32_t fill_type = kStyled ? st[lay.ft >= 0 ? lay.ft : 0] : 0;
-    const int32_t mode = kStyled ? st[lay.blend >= 0 ? lay.blend : 0] : 0;
-    if (kStyled && lay.ft >= 0 && fill_type == 1) {
-      gradient(st + lay.grad, st + lay.stops, lay.ms, xg, yg, fr, fg, fb, fa);
-    }
-    if (kTex && tex.off >= 0 && fill_type == 2) {
-      // The texture lanes load behind the branch: issued with the unit's
-      // other style loads instead, every solid unit loads them too, and
-      // the fold ran 3.5% slower on paris-30k-textured (PERF.md).
-      float tl[10];
-#pragma unroll
-      for (int i = 0; i < 10; ++i) tl[i] = F(st[tex.off + i]);
-      const float4 c = texel(tex, tl, xg, yg);
-      fr = c.x;
-      fg = c.y;
-      fb = c.z;
-      fa = c.w;
-    }
-
-    float src_a = mul(fa, cov);
-    if (kClip) {
+  // Stages the chunk of units k0 ..: the run and flags of each unit, then
+  // its carry row and style row.  n is uniform across the block, so every
+  // thread reaches both barriers.
+  auto stage = [&](int k0) {
+    if (q < kChunk && k0 + q < n) {
+      const int u = min(base + k0 + q, (int)(n_units - 1));
+      const int r = max(0, min(src2[u], (int)(run_cap - 1)));
+      int32_t f = tx_s[r] != tile_tx ? kVirt : 0;
       // FLAG_UNCLIPPED: the draw's governing full clip was dropped.
-      const bool clipped =
-          st[lay.clipped] == 1 && (virt[u] & kUnclipped) == 0;
-      if (clipped) src_a = clip_last >= 0 ? mul(src_a, clipm) : 0.0f;
-      src_a = mul(src_a, draw ? 1.0f : 0.0f);
+      if (kClip && (virt[u] & kUnclipped) != 0) f |= kUnclip;
+      run_s[q] = r;
+      flag_s[q] = f;
     }
+    __syncthreads();
+    const int m = min(kChunk, n - k0);
+    for (int i = q; i < m * 16; i += kThreads) {
+      const int j = i >> 4;
+      const int64_t at = (int64_t)run_s[j] * 16 + (i & 15);
+      carry_s[i] = (flag_s[j] & kVirt) ? carry_after[at] : carry_in[at];
+    }
+    for (int i = q; i < m * sw; i += kThreads) {
+      const int j = i / sw;
+      style_s[i] = style[(int64_t)run_s[j] * sw + (i - j * sw)];
+    }
+    __syncthreads();
+  };
+  for (int k0 = 0; k0 < n; k0 += kChunk) {
+    if (k0 > 0) __syncthreads();  // the last chunk's rows are read
+    stage(k0);
+    const int m = min(kChunk, n - k0);
+    for (int j = 0; j < m; ++j) {
+      const int32_t f = flag_s[j];
+      int32_t ce0 = carry_s[j * 16 + py];
+      int32_t ce1 = ce0;
+      int32_t area0 = 0, area1 = 0;
+      if (!(f & kVirt)) {  // a virtual unit: no grid, cover 0, no scan
+        const int2 g = *reinterpret_cast<const int2*>(
+            grid + (int64_t)run_s[j] * 256 + 2 * q);
+        const int32_t cover0 = (int32_t)(int16_t)(g.x & 0xFFFF);
+        area0 = (int32_t)((uint32_t)g.x - (uint32_t)cover0) >> 16;
+        const int32_t cover1 = (int32_t)(int16_t)(g.y & 0xFFFF);
+        area1 = (int32_t)((uint32_t)g.y - (uint32_t)cover1) >> 16;
+        // Inclusive scan of the pairs' cover over the 8 threads of a row.
+        const int32_t pair = cover0 + cover1;
+        int32_t inc = pair;
+#pragma unroll
+        for (int off = 1; off < 8; off <<= 1) {
+          const int32_t y = __shfl_up_sync(0xffffffffu, inc, off, 8);
+          if (qx >= off) inc += y;
+        }
+        ce0 += inc - pair;
+        ce1 = ce0 + cover0;
+      }
 
-    Rgb bl = {fr, fg, fb};
-    if (kStyled && lay.blend >= 0) bl = blend(mode, {dr, dg, db}, {fr, fg, fb});
+      const int32_t* st = style_s + j * sw;
+      const bool fr_eo = st[kStyled ? lay.fr : 4] != 0;
+      const float cov0 = coverage(ce0, area0, fr_eo);
+      const float cov1 = coverage(ce1, area1, fr_eo);
 
-    const float inv_dst_a = sub(1.0f, da);
-    const float inv_dst_a_src_a = mul(inv_dst_a, src_a);
-    const float inv_src_a = sub(1.0f, src_a);
-    const float dst_a_src_a = mul(da, src_a);
-    dr = add(mul(dr, inv_src_a),
-             add(mul(fr, inv_dst_a_src_a), mul(bl.r, dst_a_src_a)));
-    dg = add(mul(dg, inv_src_a),
-             add(mul(fg, inv_dst_a_src_a), mul(bl.g, dst_a_src_a)));
-    db = add(mul(db, inv_src_a),
-             add(mul(fb, inv_dst_a_src_a), mul(bl.b, dst_a_src_a)));
-    da = add(mul(da, inv_src_a), src_a);
+      bool draw = true;
+      if (kClip) {
+        const int32_t func = st[lay.func];
+        draw = func == 0;
+        const bool is_clip_unit = func == 1;
+        // Clip expiry precedes everything (painter/mod.rs:302-306).
+        if (clip_last >= 0 && clip_last < st[lay.layer]) clip_last = -1;
+        if (is_clip_unit && clip_last < 0) clip_last = st[lay.cend];
+        if (is_clip_unit) {
+          clipm0 = cov0;
+          clipm1 = cov1;
+        }
+      }
+      const int32_t fill_type = kStyled && lay.ft >= 0 ? st[lay.ft] : 0;
+      const bool has_blend = lay.blend >= 0;
+      const int32_t mode = kStyled && has_blend ? st[lay.blend] : 0;
+      const bool clipped = kClip && st[lay.clipped] == 1 && (f & kUnclip) == 0;
+
+      auto paint = [&](Px& d, float cov, float clipm, float x) {
+        const Px fl = fill_at<kStyled, kTex>(st, lay, tex, fill_type, x, yg);
+        float src_a = mul(fl.a, cov);
+        if (kClip) {
+          if (clipped) src_a = clip_last >= 0 ? mul(src_a, clipm) : 0.0f;
+          src_a = mul(src_a, draw ? 1.0f : 0.0f);
+        }
+        over<kStyled>(d, fl, src_a, has_blend, mode);
+      };
+      paint(d0, cov0, clipm0, xg);
+      paint(d1, cov1, clipm1, add(xg, 1.0f));
+    }
   }
-  float* o = out + t * 1024;
-  o[p] = dr;
-  o[256 + p] = dg;
-  o[512 + p] = db;
-  o[768 + p] = da;
+  float2* o = reinterpret_cast<float2*>(out + (int64_t)t * 1024) + q;
+  o[0] = make_float2(d0.r, d1.r);
+  o[128] = make_float2(d0.g, d1.g);
+  o[256] = make_float2(d0.b, d1.b);
+  o[384] = make_float2(d0.a, d1.a);
 }
 
 using FoldFn = void (*)(const int32_t*, const int32_t*, const int32_t*,
                         const int32_t*, const int32_t*, const int32_t*,
                         const int32_t*, const int32_t*, const int32_t*,
-                        const float*, Lay, int64_t, int64_t, int64_t, float*,
-                        Tex);
+                        const int32_t*, const float*, Lay, int64_t, int64_t,
+                        int64_t, float*, Tex);
 
 // Solid/Over, styled, textured, clip (fold_kernel.variant).
 const FoldFn kFold[4] = {
@@ -406,11 +514,13 @@ const FoldFn kFold[4] = {
 
 }  // namespace
 
-// layout (host memory): fr, blend, ft, func, layer, cend, clipped, grad,
-// stops, width, ms, tex; an offset of -1 leaves its feature out.  virt may
-// be null for a frame without clips, atlas for a frame without textures.
-extern "C" int forma_fold(const void* ust, const void* cnt, const void* src2,
-                          const void* virt, const void* grid,
+// order: the tiles in the order the blocks fold them (a permutation of 0 ..
+// n_tiles - 1), or null for index order.  layout (host memory): fr, blend,
+// ft, func, layer, cend, clipped, grad, stops, width, ms, tex; an offset of
+// -1 leaves its feature out.  virt may be null for a frame without clips,
+// atlas for a frame without textures.
+extern "C" int forma_fold(const void* order, const void* ust, const void* cnt,
+                          const void* src2, const void* virt, const void* grid,
                           const void* carry_in, const void* carry_after,
                           const void* tx_s, const void* style,
                           const void* clear, const void* layout,
@@ -426,10 +536,16 @@ extern "C" int forma_fold(const void* ust, const void* cnt, const void* src2,
       lay.func >= 0
           ? 3
           : (tex.off >= 0 ? 2 : (lay.grad >= 0 || lay.blend >= 0 ? 1 : 0));
-  kFold[idx]<<<(unsigned)n_tiles, 256, 0, stream>>>(
-      static_cast<const int32_t*>(ust), static_cast<const int32_t*>(cnt),
-      static_cast<const int32_t*>(src2), static_cast<const int32_t*>(virt),
-      static_cast<const int32_t*>(grid),
+  const int smem = 4 * smem_words(idx == 0 ? 5 : lay.width);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kFold[idx], cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kFold[idx]<<<(unsigned)n_tiles, kThreads, smem, stream>>>(
+      static_cast<const int32_t*>(order), static_cast<const int32_t*>(ust),
+      static_cast<const int32_t*>(cnt), static_cast<const int32_t*>(src2),
+      static_cast<const int32_t*>(virt), static_cast<const int32_t*>(grid),
       static_cast<const int32_t*>(carry_in),
       static_cast<const int32_t*>(carry_after),
       static_cast<const int32_t*>(tx_s), static_cast<const int32_t*>(style),

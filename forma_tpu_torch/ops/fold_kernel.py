@@ -24,15 +24,17 @@ grid and the run's carry_after; real units take carry_in.  Clip frames
 also read each unit's FLAG_UNCLIPPED bit from `virt_u` (the JAX package
 bakes it into an assembled unit matrix instead, `paint.py:260-270`).
 
-The CUDA kernel (`csrc/fold.cu`) runs one block per tile and one thread
-per pixel, in four specialisations: solid/Over (none of the fill, blend
-or clip code), styled (gradients and blend modes), textured (texture
-fills, with gradients and blend modes) and clip (all of it, textures
-included); the plain version advances all tiles one unit per step.  Both
-use the JAX expression trees op for op, so their f32 results are
-bit-equal.  Launches count per specialisation: "fold" (solid fills,
-Over), "fold_styled" (gradients or blend modes), "fold_tex" (texture
-fills, no clips), "fold_clip" (any frame with clips).
+The CUDA kernel (`csrc/fold.cu`) runs one block per tile and two pixels
+per thread (the styled, textured and clip folds deepest tiles first:
+`tile_order`), with each chunk of a tile's units staged in shared
+memory, in four specialisations: solid/Over (none of the fill, blend or
+clip code), styled (gradients and blend modes), textured (texture fills,
+with gradients and blend modes) and clip (all of it, textures included);
+the plain version advances all tiles one unit per step.  Both use the
+JAX expression trees op for op, so their f32 results are bit-equal.
+Launches count per specialisation: "fold" (solid fills, Over),
+"fold_styled" (gradients or blend modes), "fold_tex" (texture fills, no
+clips), "fold_clip" (any frame with clips).
 """
 
 from __future__ import annotations
@@ -49,6 +51,11 @@ from . import _build
 from ._u32 import bits_f32
 from .grid_kernel import unpack_grid
 from .rasterize import TX_BITS
+
+# Blocks of csrc/fold.cu resident on one SM, at the least (128 threads, at
+# most 48 registers): a frame of at most this many tiles per SM starts
+# every tile at once, so its fold needs no tile order.
+FOLD_BLOCKS_PER_SM = 10
 
 TH = consts.TILE_HEIGHT
 TW = consts.TILE_WIDTH
@@ -144,6 +151,16 @@ def tile_spans(key_u, u_valid, rows: int, tiles_x: int, k_slots: int):
     return ust.to(torch.int32), cnt.to(torch.int32)
 
 
+def tile_order(cnt):
+    """The order in which the CUDA fold's blocks take the tiles (styled,
+    textured and clip folds): by descending unit count, ties by tile
+    index; i32 [T], a permutation of 0 .. T - 1, computed on cnt's device
+    with no host sync.  Tile depths are skewed and the deepest tiles lie
+    in the frame's last tile rows, so in index order they would start last
+    and leave the card idle behind them."""
+    return torch.argsort(cnt, descending=True, stable=True).to(torch.int32)
+
+
 def paint_fold(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s, tx_s,
                style_s, clear, tiles_x: int, features, ms: int, atlas=None):
     """Folds every tile's units; returns linear f32 [T, 4 * 256]
@@ -155,7 +172,11 @@ def paint_fold(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s, tx_s,
     i32 [R, 256]; carry_in_s, carry_after_s i32 [R, 16]; tx_s i32 [R];
     style_s i32 [R, style_layout(features, ms).width]; clear f32 [4];
     atlas f32 [AH, AW, 4], read by texture frames (None otherwise).
-    CUDA tensors launch `forma_fold`; CPU tensors take `paint_fold_torch`."""
+    CUDA tensors launch `forma_fold`; CPU tensors take `paint_fold_torch`.
+    The styled, textured and clip folds take the tiles in `tile_order`
+    unless they all fit the card at once; the solid fold takes them in
+    index order: its unit step is cheap enough that the deep tiles' tail
+    costs less than the sort (on the H100, PERF.md)."""
     if not grid.is_cuda:
         return paint_fold_torch(ust, cnt, src2_u, virt_u, grid, carry_in_s,
                                 carry_after_s, tx_s, style_s, clear, tiles_x,
@@ -170,6 +191,7 @@ def paint_fold(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s, tx_s,
     if features.has_clip:
         _build.check(virt_u, "virt_u", torch.int32, (U,))
     _build.check(grid, "grid", torch.int32, (R, 256))
+    _build.check_aligned(grid, "grid", 8)  # two pixels' words per load
     _build.check(carry_in_s, "carry_in_s", torch.int32, (R, 16))
     _build.check(carry_after_s, "carry_after_s", torch.int32, (R, 16))
     _build.check(tx_s, "tx_s", torch.int32, (R,))
@@ -186,8 +208,11 @@ def paint_fold(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s, tx_s,
         raise ValueError("paint_fold: empty unit or run table")
     out = torch.empty((T, 4 * 256), dtype=torch.float32, device=grid.device)
     if T:
+        sms = torch.cuda.get_device_properties(grid.device).multi_processor_count
+        deep_first = counter != "fold" and T > sms * FOLD_BLOCKS_PER_SM
+        order = tile_order(cnt) if deep_first else None
         _build.launch(
-            "forma_fold", counter,
+            "forma_fold", counter, None if order is None else order.data_ptr(),
             ust.data_ptr(), cnt.data_ptr(), src2_u.data_ptr(),
             virt_u.data_ptr() if features.has_clip else None, grid.data_ptr(),
             carry_in_s.data_ptr(), carry_after_s.data_ptr(), tx_s.data_ptr(),
