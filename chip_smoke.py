@@ -29,6 +29,13 @@ failure exits non-zero:
    p99, units folded, the virtual share) with a list-scheduling model's
    unit-steps for the card's block slots (8 and 12 per SM) taking the
    tiles in index order and deepest first (`fold_kernel.tile_order`);
+   then K4 on edge lines built with numpy from a seed (vertical and
+   horizontal lines, lines off the viewport's four sides and across its
+   edges, zero-length and dead lines, padding vlines, a key of exactly
+   31 bits) against its plain version (bit-equal required); and the
+   frame's K4 words through the segment sort as int32 keys against the
+   int64 path rebuilt from the same words (keys equal, each key's
+   payloads equal as multisets), with both layouts' sorts timed;
 4. the circles configuration (64 circles, 256x256, fixed capacities)
    through `Renderer.render` on the card, against the same composition
    rendered by the port on the CPU, every kernel's plain version (max
@@ -39,25 +46,25 @@ failure exits non-zero:
    have launched); then the same frame through every kernel's plain
    version on the card (max channel diff <= 1);
 6. paris-30k-styled at 1920x1080 (linear-gradient buildings, Screen-
-   blended roads, radial-gradient parks): K3's styled specialisation on
-   the frame's own inputs against its plain version and its tile depths,
-   as in phase 3; then
+   blended roads, radial-gradient parks): K4 and K3's styled
+   specialisation on the frame's own inputs against their plain versions
+   and K3's tile depths, as in phase 3; then
    the frame through `Renderer.render` as in phase 5 (counters, warm-up
    and 5 timed frames, peak memory) against the plain path on the card;
 7. the styled mix (`scenes.styled_mix`: 400 layers at 512x512 with
    gradients, all 16 blend modes, clips and clipped draws, both fill
-   rules): K3's clip specialisation on its inputs against its plain
-   version, then the frame through `Renderer.render` (counters read)
+   rules): K4 and K3's clip specialisation on its inputs against their
+   plain versions, then the frame through `Renderer.render` (counters read)
    against the port's CPU render (max channel diff <= 1);
 8. paris-30k-textured at 1920x1080 (21,000 buildings filled from an atlas
-   of 8 shared 32x32 images, roads and parks solid): K3's textured
-   specialisation on the frame's own inputs against its plain version, as
-   in phase 3; then the frame as in phase 6;
+   of 8 shared 32x32 images, roads and parks solid): K4 and K3's textured
+   specialisation on the frame's own inputs against their plain versions,
+   as in phase 3; then the frame as in phase 6;
 9. the textured mix (`scenes.textured_mix`: 300 layers at 512x512, most
    of them textured through rotated transforms, with gradients, blend
-   modes, clips and clipped textured draws): K3's clip specialisation with
-   textures against its plain version, then the frame against the port's
-   CPU render, as in phase 7;
+   modes, clips and clipped textured draws): K4 and K3's clip
+   specialisation with textures against their plain versions, then the
+   frame against the port's CPU render, as in phase 7;
 10. K5, the texture-fold probe (`forma_tpu_torch.probes.texture_fold`):
    its three modes against the plain version (bit-equal) at 8 blocks of
    32 tiles and 44 steps; then its entry point's measurement at the
@@ -95,6 +102,16 @@ parent commit unpacked with `git archive`; give them as parent, change,
 change, parent), in both ways above and with the wrapper's host
 microseconds, each output held bit-equal to this checkout's plain
 version; `tile_order` is timed alone first.
+
+    python3 chip_smoke.py --raster-timing DIR [DIR ...] [--scene ...]
+
+does the same for K4: on one frame's own K4 inputs, through each DIR's
+port, batched, synchronised and CUDA-graph ms and the wrapper's host
+microseconds, each output held bit-equal to this checkout's plain version
+once widened to u32 values (a port may store int64 values or int32
+words), each DIR's whole `rasterize_sort` stage timed, and K4's ptxas
+lines from each DIR's build; first the frame's keys through the segment
+sort in both layouts (int32 and int64), held equal and timed alone.
 """
 
 from __future__ import annotations
@@ -166,8 +183,14 @@ F32_FMA_FLOPS_PER_S = 67e12
 # ordered) and 12 (`fold.cu` now: 128 threads, at most 40 registers).
 K3_BLOCKS_PER_SM = (8, 12)
 # f32 operations per unit of work, counted from the kernel sources:
-# csrc/rasterize.cu per pixel segment in range (two float-float `find`s of
-# 88 ops each, 2 clamps, 4 endpoints of 5 ops); csrc/fold.cu per unit and
+# csrc/rasterize.cu 76 per float-float `find` that depend on the crossing
+# (88 less the 12 that depend only on the line: the splits of a_over.hi
+# and b_over.hi, their two products with the low word 0 and two isfinite
+# tests), one find for each pixel segment in range and one more for each
+# live line (n segments share n + 1 crossings), 12 per live line, and 22
+# per segment in range (2 clamps, 4 endpoints of 5 ops): 198 per segment
+# while every segment ran two whole finds, the count printed beside;
+# csrc/fold.cu per unit and
 # pixel: coverage 7 and Over 22; a gradient fill 16 for t (linear and
 # radial, select), one compare per stop and 25 to interpolate the one
 # segment the pixel falls in (the work the stop chain needs; the select
@@ -182,7 +205,8 @@ K3_BLOCKS_PER_SM = (8, 12)
 # Over blend, coverage 7 and 1 add without it.  csrc/microbench.cu K6 per
 # unit-pixel: 3 (1 - c, the multiply, + c); K7 and K9 do no float
 # arithmetic.
-K4_F32_OPS_PER_SEGMENT = 198
+K4_F32_OPS_PER_FIND, K4_F32_OPS_PER_LINE, K4_F32_OPS_PER_SEGMENT = 76, 12, 22
+K4_F32_OPS_PER_SEGMENT_TWO_FINDS = 198
 K3_F32_OPS_PER_UNIT_PIXEL = 29
 K3_GRAD_OPS, K3_STOP_OPS, K3_SEGMENT_OPS, K3_CLIP_OPS = 16, 1, 25, 2
 K3_TEX_OPS = 18
@@ -191,6 +215,13 @@ K5_COORD_OPS, K5_BASE_OPS, K5_SAMPLE_OPS, K5_ACC_OPS, K5_PRM_OPS = 9, 2, 6, 4, 6
 K8_NO_BLEND_OPS = 8
 K6_F32_OPS_PER_UNIT_PIXEL = 3
 K8_LANES = 277  # u_mat lanes a K8 step reads: grid 256, carries 16, fill 4, rule 1
+# The segment words' layouts (`forma_tpu_torch/ops/_u32.py`,
+# `rasterize_kernel.py`, `rasterize.py`), restated so that `--raster-timing`
+# reads any tree's output: the u32 sentinel and mask of the int64 values,
+# K4's int32 key sentinel, and tx's bits in the canonical key_hi.
+U32_SENTINEL = MASK32 = 0xFFFFFFFF
+PACKED_SENTINEL = 0x7FFFFFFF
+KEY_HI_TX_BITS = 13
 
 def say(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
@@ -368,13 +399,23 @@ def fold_unit_ops(args) -> torch.Tensor:
     return ops
 
 
+def k4_work(args) -> tuple:
+    """(pixel segments in range, live vlines, live lines) of K4's inputs:
+    every live line's length, its ceil(length / k_seg) vlines, up to
+    v_total, and the lines of non-zero length."""
+    params, vline_ends, v_total, v_cap, k_seg = args[:5]
+    assert int(v_total) == int(vline_ends[-1]) <= v_cap
+    lengths = params[:, 15].double()
+    return (int(lengths.sum()), int(torch.ceil(lengths / k_seg).sum()),
+            int((lengths > 0).sum()))
+
+
 def f32_ops(name: str, args) -> int:
     """f32 operations the kernel does on these inputs (data-dependent)."""
     if name == "rasterize":
-        params, vline_ends, v_total, v_cap, k_seg = args[:5]
-        # Segments in range: every live line's length, up to v_total vlines.
-        assert int(v_total) == int(vline_ends[-1]) <= v_cap
-        return K4_F32_OPS_PER_SEGMENT * int(params[:, 15].double().sum())
+        segs, _, lines = k4_work(args)
+        return (K4_F32_OPS_PER_SEGMENT * segs + K4_F32_OPS_PER_FIND * (segs + lines)
+                + K4_F32_OPS_PER_LINE * lines)
     if name == "fold_ablate":
         from forma_tpu_torch.probes import fold_ablate as k8
 
@@ -451,6 +492,9 @@ def check_kernel(name: str, kern, plain, args, graph: bool = False, **label) -> 
     fma_rate_ms = ops / F32_FMA_FLOPS_PER_S * 1e3
     lib = library_call(name, args)
     library_ms = time_ms(lib[1]) if lib else None
+    if name == "rasterize":
+        before_ms = K4_F32_OPS_PER_SEGMENT_TWO_FINDS * k4_work(args)[0] / F32_OPS_PER_S * 1e3
+        label["bound_ms_at_two_finds_per_segment"] = f"{max(bytes_ms, before_ms):.4f}"
     graphs = {}
     if graph:
         from forma_tpu_torch.probes import time_ms_graph
@@ -611,6 +655,21 @@ def frame_path(label: str, path: str, r, comp, size, ref, n_timed: int = 5) -> d
     return launches
 
 
+def check_k4(label: str, args) -> tuple:
+    """K4 against its plain version on `args` (a frame's own inputs, or the
+    edge lines), bit-equal required, untimed (phase 3 times it on
+    paris-30k); returns K4's output."""
+    from forma_tpu_torch.ops import rasterize_kernel as rk
+
+    got = rk.rasterize_blocks(*args)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, rk.rasterize_blocks_torch(*args))
+    say(label, kernel="rasterize", segments=k4_work(args)[0], max_abs_err=err)
+    if err != 0.0:
+        raise AssertionError(f"{label}: K4 differs from its plain version ({err})")
+    return got
+
+
 def paris_variant(device, label: str, counter: str) -> tuple:
     """Phases 6 and 8: a variant of paris-30k at 1920x1080 (`label` a key
     of PARIS_SCENES and of PATHS): K3's specialisation `counter` on the
@@ -633,6 +692,7 @@ def paris_variant(device, label: str, counter: str) -> tuple:
     say(label, first_frame_s=f"{time.perf_counter() - t:.2f}", caps=tuple(r._caps),
         regrows=r.regrow_count, features=str(taps["fold"][11]).replace(" ", ""))
     fold_depths(label, taps["fold"])
+    check_k4(label, taps["rasterize"])
     res = check_fold(counter, taps["fold"])
     del taps
     ref, _ = r.render_device(comp, PARIS_W, PARIS_H, clear, plain=True)
@@ -656,6 +716,7 @@ def mix_vs_cpu(device, label: str, build) -> tuple:
     r.render_device(comp, MIX_W, MIX_H, clear, taps=taps)
     say(label, layers=len(comp.layers), caps=tuple(r._caps),
         features=str(taps["fold"][11]).replace(" ", ""))
+    check_k4(label, taps["rasterize"])
     res = check_fold("fold_clip", taps["fold"])
     del taps
     t = time.perf_counter()
@@ -808,14 +869,177 @@ def scatter_probe(device, k2_slots: int, k2_live: int, k2: dict) -> tuple:
     return {"mode": "independent", **out["independent"]}, launches
 
 
-def fold_timing(roots, scene: str) -> int:
-    """`--fold-timing DIR [DIR ...]`: K3 on one frame's own inputs, recorded
-    by this checkout's port, through the port of the checkout in each DIR
-    in turn, each output held bit-equal to this checkout's plain version."""
+def u32_values(packed, payload) -> tuple:
+    """K4's output as int64 u32 values, whichever layout a port stores:
+    int32 words (the key sentinel 0x7FFFFFFF mapped to 0xFFFFFFFF, the
+    payload's 32 bits) or int64 values, as they are."""
+    if packed.dtype == torch.int64:
+        return packed, payload
+    key = packed.long()
+    return torch.where(key == PACKED_SENTINEL, U32_SENTINEL, key), payload.long() & MASK32
+
+
+def int64_stream(packed, payload, slot_bits: int, tx_bits: int) -> tuple:
+    """The int64 path K4's words took before they stayed 32-bit: widened to
+    u32 values with the 0xFFFFFFFF sentinel, one unstable sort of the int64
+    keys, the payload gathered along, the keys unpacked into (key_hi,
+    key_lo) as `rasterize.unpack_packed_keys` did on int64 keys."""
+    key, pay = u32_values(packed, payload)
+    key, order = torch.sort(key, stable=False)
+    pay = pay[order]
+    invalid = key == U32_SENTINEL
+    txb = key & ((1 << tx_bits) - 1)
+    rowb = key >> (slot_bits + tx_bits)
+    key_hi = torch.where(invalid, U32_SENTINEL, (rowb << KEY_HI_TX_BITS) | txb)
+    key_lo = torch.where(invalid, 0, (key >> tx_bits) & ((1 << slot_bits) - 1))
+    return key_hi, key_lo, pay
+
+
+def same_stream(got, want) -> bool:
+    """Two sorted segment streams: keys equal element by element, and the
+    payloads of each key equal as multisets (the sort is unstable)."""
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        return False
+    kh, kl = got[0], got[1]
+    new = torch.ones_like(kh, dtype=torch.bool)
+    new[1:] = (kh[1:] != kh[:-1]) | (kl[1:] != kl[:-1])
+    group = torch.cumsum(new, 0) << 32
+    return torch.equal(torch.sort(group | got[2]).values, torch.sort(group | want[2]).values)
+
+
+def sort_layouts(label: str, args, timed: bool = False) -> None:
+    """K4's words on one frame's inputs (`args`) through the segment sort in
+    both layouts: `rasterize.sort_segments` (int32 keys, the int32 payload
+    gathered, then widened) against the int64 path rebuilt from the same
+    words (`int64_stream`), held equal (`same_stream`); `timed` also times
+    each layout's `torch.sort` alone, its sort with the payload gather,
+    and the whole sort-and-unpack (batched and CUDA-graph device ms)."""
+    from forma_tpu_torch.ops import rasterize_kernel as rk
+    from forma_tpu_torch.ops.rasterize import sort_segments
+    from forma_tpu_torch.probes import time_ms_graph
+
+    slot_bits, tx_bits = args[8], args[9]
+    packed, payload = (t.reshape(-1) for t in rk.rasterize_blocks(*args))
+    got = sort_segments(packed, payload, slot_bits, tx_bits)
+    want = int64_stream(packed, payload, slot_bits, tx_bits)
+    ok = same_stream(got, want)
+    say(label, check="sorted stream: int32 words against the int64 path", keys=packed.numel(),
+        valid=int((packed != PACKED_SENTINEL).sum()), equal=ok)
+    if not ok:
+        raise AssertionError(f"{label}: the int32 sort's stream differs from the int64 path's")
+    if not timed:
+        return
+    key64, pay64 = u32_values(packed, payload)
+    fns = {
+        "i32_sort": lambda: torch.sort(packed, stable=False),
+        "i64_sort": lambda: torch.sort(key64, stable=False),
+        "i32_sort_gather": lambda: payload[torch.sort(packed, stable=False)[1]],
+        "i64_sort_gather": lambda: pay64[torch.sort(key64, stable=False)[1]],
+        "i32_sort_unpack": lambda: sort_segments(packed, payload, slot_bits, tx_bits),
+        "i64_sort_unpack": lambda: int64_stream(packed, payload, slot_bits, tx_bits),
+    }
+    times = {f"{k}_ms": time_ms(fn) for k, fn in fns.items()}
+    times.update({f"{k}_ms_graph": time_ms_graph(fn) for k, fn in fns.items()})
+    say(label, **{k: f"{v:.4f}" for k, v in times.items()})
+
+
+# The K4 edge phase's frame: 1920x1080, tile rows [5, 65) of 68 (row_lo >
+# 0, lines above and below), 120 tiles across; [row | slot | tx] takes
+# exactly 31 bits: 6 + 18 + 7.
+EDGE_W, EDGE_H, EDGE_ROW_LO, EDGE_ROWS, EDGE_TILES_X, EDGE_SLOT_BITS = 1920, 1080, 5, 60, 120, 18
+
+
+def k4_edge_inputs(seed: int = 4) -> tuple:
+    """K4's inputs (CPU tensors) for lines built with numpy from `seed`
+    through the port's `line_setup`: vertical and horizontal lines (a or b
+    non-finite), lines left and right of the viewport and across its
+    edges, lines in the rows above row_lo and below row_lo + rows,
+    zero-length lines, dead lines (alone, and a run of 300), one-vline
+    lines between dead ones (a warp's vlines then span more lines than its
+    window), long lines, layer slots up to 2^18 - 1 and segments in the
+    last tile row and column; 1,000 padding vlines past v_total."""
+    from forma_tpu_torch.ops import line_setup as ls
+
+    rng = np.random.default_rng(seed)
+    w, h = float(EDGE_W), float(EDGE_H)
+    y_lo, y_hi = EDGE_ROW_LO * 16.0, (EDGE_ROW_LO + EDGE_ROWS) * 16.0
+
+    def pts(n, x0, x1, y0, y1):
+        return np.stack([rng.uniform(x0, x1, n), rng.uniform(y0, y1, n)], 1)
+
+    segs = []  # (start, end) pairs, each drawn; the lines between them are dead
+    a = pts(300, -50, w + 50, -50, h + 50)
+    segs.append((a, a + np.stack([np.zeros(300), rng.uniform(-90, 90, 300)], 1)))  # vertical
+    a = pts(300, -50, w + 50, -50, h + 50)
+    segs.append((a, a + np.stack([rng.uniform(-90, 90, 300), np.zeros(300)], 1)))  # horizontal
+    segs.append((pts(200, -400, -1, 0, h), pts(200, -400, -1, 0, h)))  # left of the viewport
+    segs.append((pts(200, -300, -1, 0, h), pts(200, 1, w, 0, h)))  # into it from the left
+    segs.append((pts(200, w + 1, w + 400, 0, h), pts(200, w + 1, w + 400, 0, h)))  # right
+    segs.append((pts(200, 0, w, 0, y_lo), pts(200, 0, w, 0, y_lo)))  # above row_lo
+    segs.append((pts(200, 0, w, y_hi, h), pts(200, 0, w, y_hi, h)))  # below the rows
+    a = pts(100, 0, w, 0, h)
+    segs.append((a, a.copy()))  # zero length
+    segs.append((pts(100, w - 16, w - 1, y_hi - 16, y_hi - 1),
+                 pts(100, w - 16, w - 1, y_hi - 16, y_hi - 1)))  # the last tile
+    segs.append((pts(60, -100, w + 100, -100, h + 100), pts(60, -100, w + 100, -100, h + 100)))
+    order = rng.permutation(sum(s.shape[0] for s, _ in segs))
+    a = pts(400, 0, w, 0, h)  # short, one vline each, kept together
+    start = np.concatenate([np.concatenate([s for s, _ in segs])[order], a])
+    end = np.concatenate([np.concatenate([e for _, e in segs])[order],
+                          a + rng.uniform(-3, 3, (400, 2))])
+    n = start.shape[0]
+    p = np.empty((2 * n, 2))
+    p[0::2], p[1::2] = start, end
+    g_slot = np.asarray([(1 << EDGE_SLOT_BITS) - 1, 0, 1 << 17, 4321], np.int32)
+    line_slot = np.full(2 * n - 1, -1, np.int32)  # the lines between drawn ones
+    line_slot[0::2] = rng.integers(0, 4, n)
+    line_slot[0::2][rng.random(n) < 0.05] = -1  # dead lines alone
+    line_slot[1000:1600] = -1  # a run of 300 dead lines
+    g = (g_slot, np.ones(4, bool), np.tile(np.asarray([1, 0, 0, 1, 0, 0], np.float32), (4, 1)),
+         np.zeros(4, bool))
+    px, py = p[:, 0].astype(np.float32), p[:, 1].astype(np.float32)
+    params, _, _, ends = ls.line_setup(
+        *map(torch.from_numpy, (px, py, line_slot, *g)), EDGE_W, EDGE_H, k_seg=8)
+    tx_bits = (EDGE_TILES_X + 1).bit_length()
+    assert (EDGE_ROWS + 1).bit_length() + EDGE_SLOT_BITS + tx_bits == 31
+    v_total = int(ends[-1])
+    return (params, ends, torch.tensor(v_total), v_total + 1000, 8, EDGE_ROWS, EDGE_TILES_X,
+            EDGE_ROW_LO, EDGE_SLOT_BITS, tx_bits)
+
+
+def k4_edges(device) -> None:
+    """Phase 3: K4 on the edge lines (`k4_edge_inputs`) on the card against
+    its plain version on the card (`check_k4`), with what the lines reach:
+    warps whose vlines pass the search's window, the clamped tile -1, the
+    last tile column, keys in the top bit, the sentinel."""
+    from forma_tpu_torch.ops import rasterize_kernel as rk
+
+    assert rk.PACKED_SENTINEL == PACKED_SENTINEL
+    args = tuple(a.to(device) if isinstance(a, torch.Tensor) else a for a in k4_edge_inputs())
+    key = check_k4("k4-edges", args)[0].long()
+    valid = key != PACKED_SENTINEL
+    tx_field = key & ((1 << args[9]) - 1)
+    # Warps whose 32 vlines span more lines than `warp_owning_line`'s
+    # window (csrc/vlines.cuh), where lanes finish with a search of their own.
+    li = torch.searchsorted(args[1], torch.arange(args[3], device=device), right=True)
+    n = li.numel() // 32 * 32
+    say("k4-edges", lines=args[0].shape[0], vlines=k4_work(args)[1], v_cap=args[3],
+        warps_past_window=int((li[31:n:32] - li[0:n:32] >= 31).sum()),
+        valid_keys=int(valid.sum()), sentinels=int((~valid).sum()),
+        left_of_viewport=int((valid & (tx_field == 0)).sum()),
+        last_tile_column=int((valid & (tx_field == args[6])).sum()),
+        max_key=hex(int(key[valid].max())), min_key=int(key[valid].min()),
+        key_bits=(args[5] + 1).bit_length() + args[8] + args[9])
+    if not (int(key[valid].min()) >= 0 and (1 << 30) <= int(key[valid].max()) < PACKED_SENTINEL):
+        raise AssertionError("K4 edge lines: valid keys outside [0, 2^31 - 1) or short of bit 30")
+
+
+def frame_taps(scene: str) -> dict:
+    """Every kernel's inputs on one frame (paris-30k or a variant at
+    1920x1080, or the styled mix), recorded by this checkout's port on the
+    card."""
     from forma_tpu_torch import Color, Composition, Renderer
     from forma_tpu_torch.demos import scenes
-    from forma_tpu_torch.ops import fold_kernel as fk
-    from forma_tpu_torch.probes import time_ms_graph
 
     comp = Composition()
     if scene == "mix":
@@ -827,7 +1051,70 @@ def fold_timing(roots, scene: str) -> int:
     taps = {}
     Renderer(torch.device("cuda", 0)).render_device(
         comp, w, h, Color(1.0, 1.0, 1.0, 1.0), taps=taps)
-    args = taps["fold"]
+    return taps
+
+
+def import_port(root: str, *modules: str) -> tuple:
+    """A fresh import of the port from the checkout at `root`: its modules
+    `forma_tpu_torch.<name>` for each name in `modules`."""
+    for name in [m for m in sys.modules if m.split(".")[0] == "forma_tpu_torch"]:
+        del sys.modules[name]
+    sys.path.insert(0, root)
+    try:
+        return tuple(importlib.import_module(f"forma_tpu_torch.{m}") for m in modules)
+    finally:
+        sys.path.remove(root)
+
+
+def raster_timing(roots, scene: str) -> int:
+    """`--raster-timing DIR [DIR ...]`: K4 on one frame's own inputs,
+    recorded by this checkout's port, through the port of the checkout in
+    each DIR in turn, each output held bit-equal (as u32 values) to this
+    checkout's plain version; the segment sort in both layouts first
+    (`sort_layouts`), and each DIR's whole `rasterize_sort` stage."""
+    from forma_tpu_torch.ops import rasterize_kernel as rk
+    from forma_tpu_torch.probes import time_ms_graph
+
+    taps = frame_taps(scene)
+    args, stage_args = taps["rasterize"], taps["rasterize_sort"]
+    want = u32_values(*rk.rasterize_blocks_torch(*args))
+    segs, vlines, lines = k4_work(args)
+    say("raster-timing", scene=scene, card=repr(gpu_record()), segments=segs, vlines=vlines,
+        lines=lines, v_cap=args[3])
+    sort_layouts("raster-timing", args, timed=True)
+    ports = {}
+    for root in map(os.path.abspath, roots):
+        if root not in ports:
+            ports[root] = import_port(root, "ops.rasterize_kernel", "ops.rasterize", "ops._build")
+        kern, stage, build = ports[root]
+        fn = lambda: kern.rasterize_blocks(*args)  # noqa: E731
+        got = fn()
+        torch.cuda.synchronize()
+        err = max_abs_err(u32_values(*got), want)
+        whole = lambda: stage.rasterize_sort(*stage_args)  # noqa: E731
+        say("raster-timing", port=root, scene=scene, words=str(got[0].dtype), max_abs_err=err,
+            ms=f"{time_ms(fn):.4f}", ms_sync=f"{time_ms_sync(fn):.4f}",
+            ms_graph=f"{time_ms_graph(fn):.4f}", host_us=f"{host_us(fn):.1f}",
+            rasterize_sort_ms=f"{time_ms(whole):.4f}",
+            rasterize_sort_ms_graph=f"{time_ms_graph(whole):.4f}")
+        log = (build.library_path().parent / "nvcc.log").read_text().splitlines()
+        for i, line in enumerate(log):
+            if "Compiling entry" in line and "rasterize_kernel" in line:
+                for info in log[i + 1:i + 4]:
+                    say("raster-timing", port=root, ptxas=info.strip())
+        if err != 0.0:
+            raise AssertionError(f"{root}: K4 differs from the plain version ({err})")
+    return 0
+
+
+def fold_timing(roots, scene: str) -> int:
+    """`--fold-timing DIR [DIR ...]`: K3 on one frame's own inputs, recorded
+    by this checkout's port, through the port of the checkout in each DIR
+    in turn, each output held bit-equal to this checkout's plain version."""
+    from forma_tpu_torch.ops import fold_kernel as fk
+    from forma_tpu_torch.probes import time_ms_graph
+
+    args = frame_taps(scene)["fold"]
     want = fk.paint_fold_torch(*args)
     order = lambda: fk.tile_order(args[1])  # noqa: E731
     say("fold-timing", scene=scene, card=repr(gpu_record()),
@@ -836,12 +1123,7 @@ def fold_timing(roots, scene: str) -> int:
     ports = {}
     for root in map(os.path.abspath, roots):
         if root not in ports:
-            # A fresh import of the package from `root`.
-            for name in [m for m in sys.modules if m.split(".")[0] == "forma_tpu_torch"]:
-                del sys.modules[name]
-            sys.path.insert(0, root)
-            ports[root] = importlib.import_module("forma_tpu_torch.ops.fold_kernel")
-            sys.path.remove(root)
+            (ports[root],) = import_port(root, "ops.fold_kernel")
         fold = ports[root].paint_fold
         fn = lambda: fold(*args)  # noqa: E731
         got = fn()
@@ -859,8 +1141,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--fold-timing", metavar="DIR", nargs="+",
                     help="time K3 alone with the port of the checkout in each DIR")
+    ap.add_argument("--raster-timing", metavar="DIR", nargs="+",
+                    help="time K4 and the segment sort alone with the port of the "
+                         "checkout in each DIR")
     ap.add_argument("--scene", choices=sorted(PARIS_SCENES) + ["mix"], default="paris",
-                    help="the frame whose K3 inputs --fold-timing uses")
+                    help="the frame whose inputs --fold-timing or --raster-timing uses")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a CUDA card",
@@ -869,6 +1154,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if opts.fold_timing:
         return fold_timing(opts.fold_timing, opts.scene)
+    if opts.raster_timing:
+        return raster_timing(opts.raster_timing, opts.scene)
     from forma_tpu_torch import Color, Composition, Renderer
     from forma_tpu_torch.demos import scenes
     from forma_tpu_torch.ops import _build
@@ -912,6 +1199,8 @@ def main() -> int:
             caps=tuple(r._caps), regrows=r.regrow_count)
     fold_depths("paris", taps["fused"]["fold"])
     kres = check_kernels({**taps["fused"], "expand": taps["split"]["expand"]})
+    k4_edges(device)
+    sort_layouts("paris", taps["fused"]["rasterize"])
     rid, _, area, cover = taps["fused"]["grid"][:4]
     k2_slots, k2_live = rid.numel(), int(((area != 0) | (cover != 0)).sum())
     del taps, rid, area, cover

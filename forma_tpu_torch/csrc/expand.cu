@@ -36,7 +36,7 @@ __global__ void expand_kernel(const uint32_t* __restrict__ params,
                               int32_t* __restrict__ j_out) {
   const int64_t v = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (v >= v_cap) return;
-  const int64_t li = owning_line(vline_ends, n_lines, v);
+  const int64_t li = owning_line(vline_ends, 0, n_lines, v);
   const int64_t start = li > 0 ? vline_ends[li - 1] : 0;
   j_out[v] = (int32_t)(v - start);
   if (li < n_lines) {

@@ -7,31 +7,47 @@
 // None of that blocking carries over: on the card a gather is cheap.  Each
 // thread owns one virtual line v (at most k_seg pixel segments of one line):
 //
-//   li = owning_line(vline_ends, v) (vlines.cuh, the search K1 uses);
+//   li = the owning line, found once per warp (`warp_owning_line`,
+//   vlines.cuh: a 32-ary search by ballots, then a window of ends searched
+//   by shuffles), not by one binary search per thread;
 //   the line's 16 params are loaded once, as raw 32-bit words;
-//   for each segment k: i = j * k_seg + k, the two float-float `_find`s of
-//   the i-th and (i+1)-th grid crossings (rasterizer.rs:22-76), the rounded
-//   endpoints, border, cover and area, and the packed key
+//   for each segment k: i = j * k_seg + k, the float-float `_find` of the
+//   (i+1)-th grid crossing (rasterizer.rs:22-76) -- the i-th is the one
+//   the segment before computed, carried in a register, so n segments run
+//   n + 1 finds, not 2n -- the rounded endpoints, border, cover and area,
+//   and the packed key
 //     ((tile_y + 1) << slot_bits | slot) << tx_bits | (tile_x + 1)
 //   with the payload
 //     local_x << 21 | local_y << 17 | (area + 1024) << 6 | (cover + 16),
-//   stored to packed[k * v_cap + v] / payload[k * v_cap + v] (coalesced
-//   across the warp); invalid segments store the sentinel and the zero
-//   payload.
+//   stored as 32-bit words to packed[k * v_cap + v] / payload[k * v_cap + v]
+//   (one 128-byte line per warp and k); invalid segments store the
+//   sentinel key and the zero payload.
+//
+// The words are the TPU kernel's u32 values in int32 tensors, which the
+// segment sort orders as signed.  A valid key is below 2^31: the caller
+// keeps row + slot + tx within 31 bits (`slot_bits_for`, ops/pipeline.py).
+// So the sentinel is 0x7FFFFFFF, not the u32 0xFFFFFFFF (which would read
+// as -1 and sort first), and no valid key reaches it: tx_bits =
+// bit_length(tiles_x + 1) keeps tile_x + 1 <= tiles_x < 2^tx_bits - 1, so
+// the tx field is never all ones.
 //
 // Exactness: the result is bit-equal to the plain PyTorch version
 // (`_emit_packed` over `expand_params_torch`, ops/rasterize_kernel.py).
 // Every f32 op rounds alone (explicit __f*_rn intrinsics, --fmad=false):
-// the Veltkamp split in two_product depends on it.  A NaN guess becomes
-// +inf before the min, as in `_find`.  Float -> int conversions saturate
-// with NaN -> 0 (cvt.rzi.s32.f32, `__float2int_rz`), as `f2i32` does.
-// Integer fields wrap in 32 bits like the plain version's int32/int64
-// arithmetic masked to 32 bits, so they are computed in uint32_t and widen
-// to int64 only at the store.
+// the Veltkamp split in two_product depends on it.  A carried find is the
+// same operations on the same float as the one it replaces.  A NaN guess
+// becomes +inf before the min, as in `_find`.  Float -> int conversions
+// saturate with NaN -> 0 (cvt.rzi.s32.f32, `__float2int_rz`), as `f2i32`
+// does.  Integer fields wrap in 32 bits like the plain version's int64
+// arithmetic masked to 32 bits, so they are computed in uint32_t.
 //
-// Bound on the H100: memory traffic, dominated by the two int64 outputs
-// (16 * k_seg bytes per vline); the float-float math is a few hundred f32
-// ops per segment, under the card's f32 rate at that byte count.
+// Bound on the H100: 8 bytes stored per segment slot, against f32
+// operations issued alone at --fmad=false (76 per find, 12 per line for
+// the splits and tests that depend only on the line, 22 per segment for
+// the clamps and endpoints); at paris-30k's shapes the bytes bound it, the
+// operations close behind.  Every integer, convert and address instruction
+// competes with the f32 work for issue slots, hence the carried find and
+// the warp's search.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -45,7 +61,7 @@ constexpr int kParams = 16;
 constexpr int PX0 = 0, PY0 = 1, PDX = 2, PDY = 3, PA = 4, PB = 5, PC = 6,
               PD = 7, PAOH = 8, PAOL = 9, PBOH = 10, PBOL = 11, PCDH = 12,
               PCDL = 13, PSLOT = 14, PLEN = 15;
-constexpr uint32_t kSentinel = 0xFFFFFFFFu;
+constexpr uint32_t kSentinel = 0x7FFFFFFFu;  // see above
 constexpr uint32_t kZeroPayload = (1024u << 6) | 16u;
 constexpr int kPixelShift = 4;   // consts.PIXEL_SHIFT
 constexpr int kPixelWidth = 16;  // consts.PIXEL_WIDTH
@@ -135,21 +151,26 @@ __device__ __forceinline__ int32_t round_px(float v) {
   return __float2int_rz(floorf(__fadd_rn(v, 0.5f)));
 }
 
-__global__ void __launch_bounds__(256)
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
 rasterize_kernel(const uint32_t* __restrict__ params,
                  const int64_t* __restrict__ vline_ends,
                  const int64_t* __restrict__ v_total, int64_t n_lines,
                  int64_t v_cap, int k_seg, int rows, int tiles_x, int row_lo,
-                 int slot_bits, int tx_bits, int64_t* __restrict__ packed,
-                 int64_t* __restrict__ payload) {
+                 int slot_bits, int tx_bits, uint32_t* __restrict__ packed,
+                 uint32_t* __restrict__ payload) {
   const int64_t v = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  // The whole warp searches, lanes past v_cap included.
+  const Owner own = warp_owning_line(vline_ends, n_lines, v - lane, lane);
   if (v >= v_cap) return;
-  const int64_t li = owning_line(vline_ends, n_lines, v);
   int len = 0;  // a padding vline emits nothing
   float p[kParams] = {};
   int32_t j = 0;
-  if (v < *v_total && li < n_lines) {
-    const uint4* row = reinterpret_cast<const uint4*>(params + li * kParams);
+  if (v < *v_total && own.line < n_lines) {
+    const uint4* row =
+        reinterpret_cast<const uint4*>(params + own.line * kParams);
 #pragma unroll
     for (int q = 0; q < kParams / 4; ++q) {
       const uint4 w = row[q];
@@ -159,20 +180,25 @@ rasterize_kernel(const uint32_t* __restrict__ params,
       p[4 * q + 3] = __uint_as_float(w.w);
     }
     len = __float2int_rz(p[PLEN]);
-    j = (int32_t)(v - (li > 0 ? vline_ends[li - 1] : 0));
+    j = (int32_t)(v - own.start);
   }
   const Line l = {p[PA], p[PB], p[PC], p[PD],
                   {p[PAOH], p[PAOL]}, {p[PBOH], p[PBOL]}, {p[PCDH], p[PCDL]}};
   const uint32_t slot = (uint32_t)__float2int_rz(p[PSLOT]);
   const int32_t skip = (int32_t)(l.c != 0.0f) + (int32_t)(l.d != 0.0f);
+  const int32_t i0 = j * k_seg;
+  // The raw find of the segment's first crossing: segment 0 computes it,
+  // every later one takes the segment before's second crossing.
+  float f_lo = i0 < len ? find(__int2float_rn(i0 - skip), l) : 0.0f;
 
   for (int k = 0; k < k_seg; ++k) {
-    const int32_t i = j * k_seg + k;
+    const int32_t i = i0 + k;
     uint32_t key = kSentinel, pay = kZeroPayload;
     if (i < len) {
-      const int32_t ii = i - skip;
-      const float t0 = fmaxf(find(__int2float_rn(ii), l), 0.0f);
-      const float t1 = fminf(find(__int2float_rn(ii + 1), l), 1.0f);
+      const float f_hi = find(__int2float_rn(i - skip + 1), l);
+      const float t0 = fmaxf(f_lo, 0.0f);
+      const float t1 = fminf(f_hi, 1.0f);
+      f_lo = f_hi;
       const int32_t x0s = round_px(__fadd_rn(__fmul_rn(t0, p[PDX]), p[PX0]));
       const int32_t y0s = round_px(__fadd_rn(__fmul_rn(t0, p[PDY]), p[PY0]));
       const int32_t x1s = round_px(__fadd_rn(__fmul_rn(t1, p[PDX]), p[PX0]));
@@ -204,8 +230,8 @@ rasterize_kernel(const uint32_t* __restrict__ params,
               (cover + 16u);
       }
     }
-    packed[k * v_cap + v] = (int64_t)key;
-    payload[k * v_cap + v] = (int64_t)pay;
+    packed[k * v_cap + v] = key;
+    payload[k * v_cap + v] = pay;
   }
 }
 
@@ -218,13 +244,12 @@ extern "C" int forma_rasterize(const void* params, const void* vline_ends,
                                int64_t slot_bits, int64_t tx_bits,
                                void* packed, void* payload,
                                cudaStream_t stream) {
-  const int threads = 256;
-  const int64_t blocks = (v_cap + threads - 1) / threads;
-  rasterize_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+  const int64_t blocks = (v_cap + kThreads - 1) / kThreads;
+  rasterize_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const uint32_t*>(params),
       static_cast<const int64_t*>(vline_ends),
       static_cast<const int64_t*>(v_total), n_lines, v_cap, (int)k_seg,
       (int)rows, (int)tiles_x, (int)row_lo, (int)slot_bits, (int)tx_bits,
-      static_cast<int64_t*>(packed), static_cast<int64_t*>(payload));
+      static_cast<uint32_t*>(packed), static_cast<uint32_t*>(payload));
   return (int)cudaGetLastError();
 }

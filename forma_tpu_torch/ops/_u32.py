@@ -4,8 +4,11 @@ The JAX pipeline keeps sort keys, payloads, `vline_ends`, run keys and
 the `0xFFFFFFFF` sentinel as u32.  PyTorch's CPU build lacks most
 `uint32` arithmetic (shifts, adds, compares, scatters), so the port holds
 every such value as an int64 in [0, 2^32): the same order, the same bit
-fields, and the sentinel still sorts last.  Bit views between f32 and
-i32 go through `Tensor.view`.
+fields, and the sentinel still sorts last.  One exception: the segment
+sort's keys and payloads stay 32-bit words in int32 tensors from K4 through
+the sort (`rasterize_kernel.py`: valid keys fit 31 bits, the sentinel
+there is 0x7FFFFFFF), and widen to int64 after it.  Bit views between f32
+and i32 go through `Tensor.view`.
 """
 
 from __future__ import annotations

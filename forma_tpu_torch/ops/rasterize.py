@@ -12,16 +12,21 @@ on the packed single-key path:
    in PyTorch.  The JAX package picks between them with `FORMA_EXPAND`;
    the port takes the caller's argument.
 2. One unstable sort orders the packed [row | slot | tx] key with its
-   payload; invalid slots carry the sentinel and sort last.
+   payload, both the TPU kernel's 32-bit words in int32 tensors; invalid
+   slots carry the sentinel 0x7FFFFFFF and sort last.  The sorted words
+   then widen to the int64 (key_hi, key_lo, payload) of u32 values that
+   the runs stage takes (`_u32.py`), the u32 sentinel in key_hi.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ._u32 import SENTINEL
+from ._u32 import MASK32, SENTINEL
 from .expand_kernel import expand_params, expand_params_torch
-from .rasterize_kernel import _emit_packed, rasterize_blocks, rasterize_blocks_torch
+from .rasterize_kernel import (
+    PACKED_SENTINEL, _emit_packed, rasterize_blocks, rasterize_blocks_torch,
+)
 
 TX_BITS = 13  # tile_x + 1 in the canonical key_hi (max 4096 tiles of 16)
 EXPAND_PATHS = ("fused", "split")
@@ -34,7 +39,7 @@ def _expand_emit_packed(
     taps=None,
 ):
     """Expansion + packed emit through `expand`'s path; returns flat
-    unsorted (packed, payload) int64 [k_seg * v_cap].  `plain` runs the
+    unsorted (packed, payload) int32 [k_seg * v_cap].  `plain` runs the
     kernel's plain PyTorch version on any device; `taps` (a dict) receives
     the kernel's inputs."""
     if expand == "fused":
@@ -58,21 +63,30 @@ def _expand_emit_packed(
     return packed.reshape(-1), payload.reshape(-1)
 
 
-def unpack_packed_keys(packed, slot_bits: int, tx_bits: int):
-    """Packed [rowb | slot | txb] -> (key_hi, key_lo) in the canonical
-    (rowb << TX_BITS | txb, layer slot) form the runs stage consumes."""
-    invalid = packed == SENTINEL
-    txb = packed & ((1 << tx_bits) - 1)
-    rowb = packed >> (slot_bits + tx_bits)
-    key_hi = torch.where(
-        invalid, torch.full_like(packed, SENTINEL), (rowb << TX_BITS) | txb
-    )
-    key_lo = torch.where(
-        invalid,
-        torch.zeros_like(packed),
-        (packed >> tx_bits) & ((1 << slot_bits) - 1),
-    )
-    return key_hi, key_lo
+def unpack_packed_keys(packed, payload, slot_bits: int, tx_bits: int):
+    """Sorted int32 words -> int64 (key_hi, key_lo, payload) of u32 values:
+    the packed [rowb | slot | txb] in the canonical (rowb << TX_BITS | txb,
+    layer slot) form the runs stage consumes, `SENTINEL` in key_hi where
+    the key was `PACKED_SENTINEL`, and the payload's 32 bits."""
+    # Fields are cut from the int32 words (a valid key is non-negative) and
+    # widen only where int64 is needed; the sentinel's garbage fields are
+    # overwritten in place.
+    invalid = packed == PACKED_SENTINEL
+    key_hi = (packed >> (slot_bits + tx_bits)).long() << TX_BITS
+    key_hi |= packed & ((1 << tx_bits) - 1)
+    key_hi.masked_fill_(invalid, SENTINEL)
+    key_lo = ((packed >> tx_bits) & ((1 << slot_bits) - 1)).long()
+    key_lo.masked_fill_(invalid, 0)
+    return key_hi, key_lo, payload.long() & MASK32
+
+
+def sort_segments(packed, payload, slot_bits: int, tx_bits: int):
+    """One unstable sort of the int32 keys, the payload gathered along, then
+    `unpack_packed_keys`.  Segments with equal keys are summed by the grid
+    accumulation, so their order is irrelevant
+    (`forma_tpu/ops/rasterize.py:374-378`)."""
+    packed, order = torch.sort(packed, stable=False)
+    return unpack_packed_keys(packed, payload[order], slot_bits, tx_bits)
 
 
 def rasterize_sort(
@@ -81,27 +95,27 @@ def rasterize_sort(
     row_lo: int = 0, slot_bits: int = 0, expand: str = "fused",
     plain: bool = False, taps=None,
 ):
-    """Returns sorted (key_hi, key_lo, payload) int64 [v_cap * k_seg].
+    """Returns sorted (key_hi, key_lo, payload) int64 [v_cap * k_seg] of u32
+    values.
 
     Only the packed single-key path is ported; `slot_bits == 0` (layer
-    slots too wide to pack) raises.  The sort is unstable: segments with
-    equal keys are summed by the grid accumulation, so their order is
-    irrelevant (`forma_tpu/ops/rasterize.py:374-378`)."""
+    slots too wide to pack) raises.  The sort is unstable
+    (`sort_segments`)."""
     if slot_bits <= 0:
         raise NotImplementedError(
             "the two-key sort path (slot_bits == 0) is not ported yet: "
             "ROADMAP.md section 1, item 10 (wide-key fallback)"
         )
+    if taps is not None:
+        taps["rasterize_sort"] = (params, slots, lengths, vline_ends, v_total, v_cap,
+                                  k_seg, rows, tiles_x, row_lo, slot_bits)
     tx_bits = max((tiles_x + 1).bit_length(), 1)
     packed, payload = _expand_emit_packed(
         params, lengths, vline_ends, v_total,
         v_cap, k_seg, rows, tiles_x, row_lo, slot_bits, tx_bits,
         expand=expand, plain=plain, taps=taps,
     )
-    packed, order = torch.sort(packed, stable=False)
-    payload = payload[order]
-    key_hi, key_lo = unpack_packed_keys(packed, slot_bits, tx_bits)
-    return key_hi, key_lo, payload
+    return sort_segments(packed, payload, slot_bits, tx_bits)
 
 
 def unpack_payload(payload):

@@ -4,9 +4,11 @@ Counterpart of `forma_tpu/ops/expand_pallas.py:201-380`
 (`rasterize_blocks_pallas`): K1's expansion and `_emit_packed`
 (`forma_tpu/ops/rasterize.py:77-213`) in one pass, so the expanded
 [16, v_cap] params and the emit's temporaries never reach device memory.
-The CUDA kernel (`csrc/rasterize.cu`) runs one thread per virtual line;
-its plain version is `expand_params_torch` followed by `_emit_packed`,
-which is also the emit of the split path (`rasterize.rasterize_sort`).
+The CUDA kernel (`csrc/rasterize.cu`) runs one thread per virtual line
+(each warp finds its lines with one search, and each segment boundary's
+crossing is found once); its plain version is `expand_params_torch`
+followed by `_emit_packed`, which is also the emit of the split path
+(`rasterize.rasterize_sort`).
 
 The emit is the i-th-intersection math (`rasterizer.rs:22-76`) over
 [k_seg, V] in float-float arithmetic (`ops/ff64.py`); pixel segments pack
@@ -15,8 +17,13 @@ as
     key     = ((tile_y + 1) << slot_bits | slot) << tx_bits | (tile_x + 1)
     payload = local_x << 21 | local_y << 17 | (area + 1024) << 6 | (cover + 16)
 
-all u32 values held in int64 (`_u32.py`); invalid slots carry the
-sentinel key and the zero payload.
+as the TPU kernel's u32 words, held in int32 tensors [k_seg, V] for the
+segment sort (`rasterize.sort_segments`), which orders them as signed.
+A valid key fits 31 bits (`check_key_budget`), so invalid slots carry the
+sentinel `PACKED_SENTINEL` = 0x7FFFFFFF, which sorts after every valid key
+(the u32 sentinel 0xFFFFFFFF would read as -1 and sort first), and the
+zero payload.  A payload keeps its 32 bits: `_u32.wrap_i32` stores it,
+`& MASK32` reads it back.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import torch
 
 from .. import consts
 from . import _build, ff64
-from ._u32 import MASK32, SENTINEL, f2i32
+from ._u32 import MASK32, f2i32, wrap_i32
 from .expand_kernel import expand_params_torch
 from .line_setup import (
     N_PARAMS, PA, PAOH, PAOL, PB, PBOH, PBOL, PC, PCDH, PCDL, PD, PDX, PDY,
@@ -33,6 +40,23 @@ from .line_setup import (
 )
 
 ZERO_PAYLOAD = (1024 << 6) | 16  # area 0, cover 0
+PACKED_SENTINEL = 0x7FFFFFFF  # invalid slot's key in the int32 words
+
+
+def check_key_budget(rows: int, tiles_x: int, slot_bits: int, tx_bits: int) -> None:
+    """Raises unless every valid [row | slot | tx] key fits 31 bits and
+    stays below `PACKED_SENTINEL`: the row field (tile_y + 1 <= rows)
+    within the bits `pipeline.slot_bits_for` counts, and the tx field
+    (tile_x + 1 <= tiles_x) never all ones, as `tx_bits =
+    bit_length(tiles_x + 1)` gives."""
+    row_bits = (rows + 1).bit_length()
+    if (slot_bits < 1 or tx_bits < 1 or row_bits + slot_bits + tx_bits > 31
+            or tiles_x + 1 >= (1 << tx_bits)):
+        raise ValueError(
+            f"packed key: rows={rows} ({row_bits} bits), slot_bits={slot_bits}, "
+            f"tx_bits={tx_bits} (tiles_x={tiles_x}) do not fit 31 bits below "
+            "the sentinel"
+        )
 
 
 def _find(fi, a_over, b_over, cd_over, a, b, c, d):
@@ -134,9 +158,11 @@ def _emit_packed(
     col, j, v_live, k_seg: int, rows: int, tiles_x: int, row_lo: int,
     slot_bits: int, tx_bits: int,
 ):
-    """_emit_core + the single-u32 [rowb | slot | txb] key; sentinel where
-    invalid.  Layer slot sits above tile_x, so the segment sort yields
-    runs in (row, layer, tile_x) carry-chain order."""
+    """_emit_core + the single [rowb | slot | txb] key; returns (packed,
+    payload) int32 [k_seg, V], the sentinel where invalid.  Layer slot
+    sits above tile_x, so the segment sort yields runs in (row, layer,
+    tile_x) carry-chain order."""
+    check_key_budget(rows, tiles_x, slot_bits, tx_bits)
     tile_x, tile_y, slot, payload, valid = _emit_core(
         col, j, v_live, k_seg, rows, tiles_x, row_lo
     )
@@ -144,15 +170,16 @@ def _emit_packed(
         (((((tile_y.long() + 1) & MASK32) << slot_bits) | slot) << tx_bits)
         | ((tile_x.long() + 1) & MASK32)
     ) & MASK32
-    packed = torch.where(valid, packed, torch.full_like(packed, SENTINEL))
-    return packed, payload
+    packed = torch.where(valid, packed, torch.full_like(packed, PACKED_SENTINEL))
+    return packed.to(torch.int32), wrap_i32(payload)
 
 
 def rasterize_blocks(
     params, vline_ends, v_total, v_cap: int, k_seg: int, rows: int,
     tiles_x: int, row_lo: int, slot_bits: int, tx_bits: int,
 ):
-    """Returns (packed, payload) int64 [k_seg, v_cap] of u32 values.
+    """Returns (packed, payload) int32 [k_seg, v_cap]: the u32 words, the
+    sentinel `PACKED_SENTINEL`.
 
     params f32 [L, 16] (L >= 1, `line_setup`'s columns); vline_ends int64
     [L] inclusive cumsum of per-line vline counts (dead lines repeat the
@@ -168,13 +195,12 @@ def rasterize_blocks(
     L = params.shape[0]
     if L < 1 or not (0 < v_cap < (1 << 24)) or not (0 < k_seg <= 64):
         raise ValueError(f"rasterize_blocks: L={L}, v_cap={v_cap}, k_seg={k_seg} out of range")
-    if slot_bits < 1 or tx_bits < 1 or slot_bits + tx_bits > 31:
-        raise ValueError(f"rasterize_blocks: slot_bits={slot_bits}, tx_bits={tx_bits}")
+    check_key_budget(rows, tiles_x, slot_bits, tx_bits)
     _build.check(params, "params", torch.float32, (L, N_PARAMS))
     _build.check_aligned(params, "params", 16)  # rows load as uint4
     _build.check(vline_ends, "vline_ends", torch.int64, (L,))
     _build.check(v_total, "v_total", torch.int64, ())
-    packed = torch.empty((k_seg, v_cap), dtype=torch.int64, device=params.device)
+    packed = torch.empty((k_seg, v_cap), dtype=torch.int32, device=params.device)
     payload = torch.empty_like(packed)
     _build.launch(
         "forma_rasterize", "rasterize",
