@@ -65,33 +65,53 @@ failure exits non-zero:
    modes, clips and clipped textured draws): K4 and K3's clip
    specialisation with textures against their plain versions, then the
    frame against the port's CPU render, as in phase 7;
-10. K5, the texture-fold probe (`forma_tpu_torch.probes.texture_fold`):
+10. the two-key route (frames whose [row | slot | tx] key passes 31 bits:
+   K1, the emit in PyTorch and the int64 two-key sort, the runs re-sorted
+   into carry-chain order, K2, and K3 reading grid rows by src_u):
+   (a) paris-30k at 7680x4320 (slot_bits 0 asserted, K4 never launched):
+   K1, K2 and K3 `fold` on the frame's own inputs against their plain
+   versions and timed as in phase 3, the real units whose src_u differs
+   from src2_u counted (more than 0 required), the two-key emit, the int64
+   sort, the whole rasterize_sort and run_data's re-sort timed, then the
+   frame as in phase 5 (expand, grid and fold launched, rasterize never)
+   against the plain path on the card; (b) paris-30k-styled and
+   -textured at 7680x4320: K3 `fold_styled` and `fold_tex` against their
+   plain versions; (c) the envelope tool's lattice (140,000 layers at
+   1920x1080, 18 slot bits, built with the port's classes): the kernels
+   and the frame as in (a), and its top-left 64x15 strip against the
+   port's CPU render of the first 2,000 layers (exact there: max diff <=
+   1); (d) the styled and textured mixes with the route forced
+   (`pipeline.slot_bits_for` replaced by 0): K3 `fold_clip` against its
+   plain version, and each frame bit-equal to its packed-path frame;
+11. K5, the texture-fold probe (`forma_tpu_torch.probes.texture_fold`):
    its three modes against the plain version (bit-equal) at 8 blocks of
    32 tiles and 44 steps; then its entry point's measurement at the
    probe's paris shape (255 blocks), counters reset and read, each mode
    checked and timed there as in phase 3, and the probe's window gather;
-11. K8, the fold ablation (`forma_tpu_torch.probes.fold_ablate`) on the
+12. K8, the fold ablation (`forma_tpu_torch.probes.fold_ablate`) on the
    TPU tool's paris-like inputs (seed 0: 465,747 units over 8,160 tiles),
    built once: its six variants against the plain version (bit-equal) on
    the first 8 blocks, `full` checked and timed at the full shape as in
    phase 3, then its entry point's measurement (counters reset and read)
    and each piece's cost beside K3 `fold` from phase 3;
-12. K6 and K7 (`probes.microbench`) at the TPU tool's sizes: K6's grouping
+13. K6 and K7 (`probes.microbench`) at the TPU tool's sizes: K6's grouping
    prep timed alone, each kernel against its plain version as in phase 3,
    then the entry point's measurement with the counters reset and read;
-13. K9 (`probes.grid_scatter`), 2^20 segments in its two input modes, each
+14. K9 (`probes.grid_scatter`), 2^20 segments in its two input modes, each
    against the plain version as in phase 3 with its rate in M segments/s
    beside K2's on the phase 3 frame, then the entry point's measurement
    with the counters reset and read.
-   Phases 11-13 also time each kernel as 20 calls captured in one CUDA
+   Phases 12-14 also time each kernel as 20 calls captured in one CUDA
    graph (`ms_graph`, and the library call's where it allows a graph):
    the device time alone, where `ms` of a ~20 us kernel reads its
    wrapper's host rate; the entry points report that device time.
 
-The last three lines are a JSON object with per-kernel results (K3 once
-per specialisation: solid, styled, textured, clip; K5 in its atlas_rowsel
-mode; K8 `full`; K9 `independent`), the card's name and power limit, and
-the status line `{"ok": true, "device": {...}}`.
+The last three lines are a JSON object with per-kernel results (K1 on the
+7680x4320 two-key frame; K3 once per specialisation, solid, styled,
+textured, clip, and `fold` again on the 7680x4320 two-key frame; K5 in
+its atlas_rowsel mode; K8 `full`; K9 `independent`; each entry names its
+frame), the card's name and power limit, and the status line
+`{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py --fold-timing DIR [DIR ...] [--scene paris|styled|textured|mix]
 
@@ -119,6 +139,7 @@ from __future__ import annotations
 import argparse
 import heapq
 import importlib
+import inspect
 import json
 import os
 import shutil
@@ -134,28 +155,36 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 K3 = "forma_tpu/ops/paint_pallas.py:468"
 KERNELS = (
     # name (= launch counter), source, TPU kernel it replaces, the run whose
-    # launches count for it: an expand path of paris-30k, the styled or
-    # textured frame, the styled mix, or the probe's entry point
+    # launches count for it (an expand path of paris-30k, the styled or
+    # textured frame, the styled mix, the two-key paris-30k at 7680x4320, or
+    # the probe's entry point), the key of its numbers, the frame they
+    # were measured on
     ("expand", "forma_tpu_torch/csrc/expand.cu",
-     "forma_tpu/ops/expand_pallas.py:175", "split"),
+     "forma_tpu/ops/expand_pallas.py:175", "wide", "expand_wide",
+     "paris-30k 7680x4320 (two-key)"),
     ("rasterize", "forma_tpu_torch/csrc/rasterize.cu",
-     "forma_tpu/ops/expand_pallas.py:356", "fused"),
+     "forma_tpu/ops/expand_pallas.py:356", "fused", "rasterize", "paris-30k 1920x1080"),
     ("grid", "forma_tpu_torch/csrc/grid.cu",
-     "forma_tpu/ops/grid_pallas.py:314", "fused"),
-    ("fold", "forma_tpu_torch/csrc/fold.cu", K3, "fused"),
-    ("fold_styled", "forma_tpu_torch/csrc/fold.cu", K3, "styled"),
-    ("fold_tex", "forma_tpu_torch/csrc/fold.cu", K3, "textured"),
-    ("fold_clip", "forma_tpu_torch/csrc/fold.cu", K3, "mix"),
+     "forma_tpu/ops/grid_pallas.py:314", "fused", "grid", "paris-30k 1920x1080"),
+    ("fold", "forma_tpu_torch/csrc/fold.cu", K3, "fused", "fold", "paris-30k 1920x1080"),
+    ("fold", "forma_tpu_torch/csrc/fold.cu", K3, "wide", "fold_wide",
+     "paris-30k 7680x4320 (two-key)"),
+    ("fold_styled", "forma_tpu_torch/csrc/fold.cu", K3, "styled", "fold_styled",
+     "paris-30k-styled 1920x1080"),
+    ("fold_tex", "forma_tpu_torch/csrc/fold.cu", K3, "textured", "fold_tex",
+     "paris-30k-textured 1920x1080"),
+    ("fold_clip", "forma_tpu_torch/csrc/fold.cu", K3, "mix", "fold_clip",
+     "styled mix 512x512"),
     ("texture_probe", "forma_tpu_torch/csrc/texture_probe.cu",
-     "tools/texture_fold_probe.py:157", "probe"),
+     "tools/texture_fold_probe.py:157", "probe", "texture_probe", "the probe's paris shape"),
     ("fold_ablate", "forma_tpu_torch/csrc/fold_ablate.cu",
-     "tools/fold_kernel_ablate.py:153", "ablate"),
+     "tools/fold_kernel_ablate.py:153", "ablate", "fold_ablate", "the TPU tool's inputs"),
     ("unit_stream", "forma_tpu_torch/csrc/microbench.cu",
-     "tools/tpu_microbench2.py:154", "micro"),
+     "tools/tpu_microbench2.py:154", "micro", "unit_stream", "the TPU tool's sizes"),
     ("seg_loop", "forma_tpu_torch/csrc/microbench.cu",
-     "tools/tpu_microbench2.py:184", "micro"),
+     "tools/tpu_microbench2.py:184", "micro", "seg_loop", "the TPU tool's sizes"),
     ("grid_scatter", "forma_tpu_torch/csrc/grid_scatter.cu",
-     "tools/pallas_scatter_probe.py:66", "scatter"),
+     "tools/pallas_scatter_probe.py:66", "scatter", "grid_scatter", "2^20 segments"),
 )
 PATHS = {
     "fused": ("rasterize", "grid", "fold"),
@@ -164,6 +193,7 @@ PATHS = {
     "mix": ("rasterize", "grid", "fold_clip"),
     "textured": ("rasterize", "grid", "fold_tex"),
     "texmix": ("rasterize", "grid", "fold_clip"),
+    "wide": ("expand", "grid", "fold"),  # the two-key route: K1, never K4
 }
 PARIS_W, PARIS_H = 1920, 1080
 MIX_W, MIX_H = 512, 512
@@ -318,31 +348,36 @@ def tensor_bytes(ts, port_layout: bool = False) -> int:
 
 def fold_units(args) -> tuple:
     """The units K3 folds on these inputs, tile by tile (units ust[t] ..
-    ust[t] + cnt[t] - 1 of tile t): (unit count, run of each unit, whether
-    it is virtual), as the kernel addresses them."""
-    ust, cnt, src2, tx_s, tiles_x = args[0], args[1], args[2], args[7], args[10]
+    ust[t] + cnt[t] - 1 of tile t): (unit count, run of each unit in
+    carry-chain order (src2_u), its grid row (src_u), whether it is
+    virtual), as the kernel addresses them."""
+    ust, cnt, src, src2, tx_s, tiles_x = (args[i] for i in (0, 1, 2, 3, 8, 11))
     n = cnt.long()
     tile = torch.repeat_interleave(torch.arange(ust.shape[0], device=ust.device), n)
     k = torch.arange(tile.numel(), device=ust.device) - (torch.cumsum(n, 0) - n)[tile]
     u = (ust.long()[tile] + k).clamp(max=src2.shape[0] - 1)
     r = src2[u].long().clamp(0, tx_s.shape[0] - 1)
-    return u.numel(), r, tx_s[r].long() != tile % tiles_x
+    g = src[u].long().clamp(0, tx_s.shape[0] - 1)
+    return u.numel(), r, g, tx_s[r].long() != tile % tiles_x
 
 
 def fold_bytes(args, out) -> int:
     """Bytes K3 must move on these inputs, 4 per i32 or f32 value: the tile
-    spans; src2 (and virt_u in a clip frame) of each folded unit; the grid
-    row and carry_in row of each run a real unit folds; the carry_after row
-    of each run a virtual unit folds; tx_s and the style row of each run
-    folded (a texture frame's row holds its 10 texture lanes); clear; the
-    atlas of a texture frame, once; the output."""
-    n_units, r, virt = fold_units(args)
-    ust, virt_u, style_s, atlas = args[0], args[3], args[8], args[13]
+    spans; src2 (src too, where it is another array; virt_u in a clip
+    frame) of each folded unit; the grid row (by src) and carry_in row of
+    each run a real unit folds; the carry_after row of each run a virtual
+    unit folds; tx_s and the style row of each run folded (a texture
+    frame's row holds its 10 texture lanes); clear; the atlas of a texture
+    frame, once; the output."""
+    n_units, r, g, virt = fold_units(args)
+    ust, src, src2, virt_u, style_s, atlas = (args[i] for i in (0, 2, 3, 4, 9, 14))
+    grid_rows = torch.unique(g[~virt]).numel()
     real_runs = torch.unique(r[~virt]).numel()
     virt_runs = torch.unique(r[virt]).numel()
     runs = torch.unique(r).numel()
-    words = (2 * ust.numel() + n_units * (1 if virt_u is None else 2)
-             + real_runs * (256 + 16) + virt_runs * 16 + runs * (1 + style_s.shape[1]) + 4)
+    per_unit = 1 + (src is not src2) + (virt_u is not None)
+    words = (2 * ust.numel() + n_units * per_unit + grid_rows * 256
+             + real_runs * 16 + virt_runs * 16 + runs * (1 + style_s.shape[1]) + 4)
     return 4 * words + tensor_bytes((atlas,)) + tensor_bytes(out)
 
 
@@ -381,7 +416,7 @@ def fold_unit_ops(args) -> torch.Tensor:
     fill type and blend mode), int64 [units folded]."""
     from forma_tpu_torch.ops.fold_kernel import style_layout
 
-    style_s, features, ms = args[8], args[11], args[12]
+    style_s, features, ms = args[9], args[12], args[13]
     lay = style_layout(features, ms)
     st = style_s[fold_units(args)[1]]
     ops = torch.full((st.shape[0],), K3_F32_OPS_PER_UNIT_PIXEL, dtype=torch.int64,
@@ -543,15 +578,16 @@ def check_kernels(taps) -> dict:
     return {name: check_kernel(name, *pair, taps[name]) for name, pair in pairs.items()}
 
 
-def check_fold(name: str, args) -> dict:
+def check_fold(name: str, args, **label) -> dict:
     """K3's specialisation `name` (the launch counter its features select)
-    against its plain version on a frame's own inputs."""
+    against its plain version on a frame's own inputs; `label` is printed
+    with the numbers."""
     from forma_tpu_torch.ops import fold_kernel as fk
 
-    if fk.variant(args[11]) != name:
-        raise AssertionError(f"{name}: the frame's features {args[11]} select "
-                             f"{fk.variant(args[11])}")
-    return check_kernel(name, fk.paint_fold, fk.paint_fold_torch, args)
+    if fk.variant(args[12]) != name:
+        raise AssertionError(f"{name}: the frame's features {args[12]} select "
+                             f"{fk.variant(args[12])}")
+    return check_kernel(name, fk.paint_fold, fk.paint_fold_torch, args, **label)
 
 
 def list_schedule_steps(cnt, order, slots: int) -> int:
@@ -571,7 +607,7 @@ def fold_depths(label: str, args) -> None:
     from forma_tpu_torch.ops import fold_kernel as fk
 
     cnt = args[1]
-    n_units, _, virt = fold_units(args)
+    n_units, _, _, virt = fold_units(args)
     order = fk.tile_order(cnt).long().cpu()
     c = cnt.long().cpu()
     p50, p99 = np.percentile(c.numpy(), [50, 99])
@@ -690,7 +726,7 @@ def paris_variant(device, label: str, counter: str) -> tuple:
     r.render_device(comp, PARIS_W, PARIS_H, clear, taps=taps)
     torch.cuda.synchronize()
     say(label, first_frame_s=f"{time.perf_counter() - t:.2f}", caps=tuple(r._caps),
-        regrows=r.regrow_count, features=str(taps["fold"][11]).replace(" ", ""))
+        regrows=r.regrow_count, features=str(taps["fold"][12]).replace(" ", ""))
     fold_depths(label, taps["fold"])
     check_k4(label, taps["rasterize"])
     res = check_fold(counter, taps["fold"])
@@ -715,7 +751,7 @@ def mix_vs_cpu(device, label: str, build) -> tuple:
     taps = {}
     r.render_device(comp, MIX_W, MIX_H, clear, taps=taps)
     say(label, layers=len(comp.layers), caps=tuple(r._caps),
-        features=str(taps["fold"][11]).replace(" ", ""))
+        features=str(taps["fold"][12]).replace(" ", ""))
     check_k4(label, taps["rasterize"])
     res = check_fold("fold_clip", taps["fold"])
     del taps
@@ -726,8 +762,234 @@ def mix_vs_cpu(device, label: str, build) -> tuple:
     return res, launches
 
 
+WIDE_W, WIDE_H = 7680, 4320
+LATTICE_LAYERS, LATTICE_COLS, LATTICE_ROWS = 140_000, 400, 350
+LATTICE_STRIP_LAYERS = 2_000
+
+
+def two_key_stages(label: str, taps) -> dict:
+    """The two-key route's PyTorch stages on a frame's own inputs, each
+    timed by CUDA events (batches of back-to-back calls): the emit after
+    K1 (`rasterize._emit_two_key`), the int64 sort (`sort_two_key`), the
+    whole `rasterize_sort` stage, and `run_data` with and without its
+    re-sort into carry-chain order (`presorted` False and True on the same
+    runs; the difference is the re-sort: the int64 sort, the inverse
+    permutation, the rowcov gather and the real_flags scatter)."""
+    from forma_tpu_torch.ops import expand_kernel as ek
+    from forma_tpu_torch.ops import rasterize as ras
+    from forma_tpu_torch.ops import runs
+
+    stage = taps["rasterize_sort"]
+    v_total, v_cap, k_seg, rows, tiles_x, row_lo = stage[4:10]
+    pt, j = ek.expand_params(*taps["expand"])
+    v_live = torch.arange(v_cap, device=pt.device) < v_total
+
+    def emit():
+        return ras._emit_two_key(lambda i: pt[i], j, v_live, k_seg, rows, tiles_x, row_lo)
+
+    kh, kl, pl = (t.reshape(-1) for t in emit())
+    rd_args = taps["run_data"]
+    times = {
+        "two_key_emit_ms": time_ms(emit, batches=3, per_batch=3),
+        "int64_sort_ms": time_ms(lambda: ras.sort_two_key(kh, kl, pl), batches=3,
+                                 per_batch=3),
+        "rasterize_sort_ms": time_ms(
+            lambda: ras.rasterize_sort(*stage[:10], slot_bits=stage[10]), batches=3,
+            per_batch=3),
+        "run_data_ms": time_ms(lambda: runs.run_data(*rd_args, presorted=False),
+                               batches=3, per_batch=3),
+        "run_data_without_resort_ms": time_ms(
+            lambda: runs.run_data(*rd_args, presorted=True), batches=3, per_batch=3),
+    }
+    times["run_data_resort_ms"] = times["run_data_ms"] - times["run_data_without_resort_ms"]
+    say(label, segment_slots=kh.numel(), valid_segments=int((kh != U32_SENTINEL).sum()),
+        runs=int(rd_args[5]), **{k: f"{v:.4f}" for k, v in times.items()})
+    return times
+
+
+def two_key_units(label: str, args) -> int:
+    """Real units K3 folds whose grid row (src_u) is not their carry-chain
+    run (src2_u), on a two-key frame's fold inputs; fails unless some are,
+    and unless the inputs take the assembly mode (src_u another array)."""
+    _, r, g, virt = fold_units(args)
+    n = int((g != r)[~virt].sum())
+    say(label, real_units=int((~virt).sum()), real_units_src_ne_src2=n,
+        virtual_units=int(virt.sum()))
+    if args[2] is args[3] or n < 1:
+        raise AssertionError(f"{label}: no real unit with src_u != src2_u on a two-key frame")
+    return n
+
+
+def wide_frame(device, label: str, build, size, counter: str, frame_check: bool) -> tuple:
+    """One two-key frame at `size` built by `build(comp)`: slot_bits 0
+    asserted, K1, K2 and K3 (specialisation `counter`) held bit-equal to
+    their plain versions on the frame's own inputs and timed; with
+    `frame_check`, the two-key stages timed and the frame through
+    `Renderer.render` (counters reset, warm-up, 5 timed frames, counters
+    read: expand, grid and `counter` launched, rasterize never) against
+    the plain path on the card.  Returns ({kernel: numbers}, launches or
+    None, renderer, composition)."""
+    from forma_tpu_torch import Color, Composition, Renderer
+
+    w, h = size
+    t = time.perf_counter()
+    comp = Composition()
+    build(comp)
+    say(label, size=f"{w}x{h}", scene_build_s=f"{time.perf_counter() - t:.1f}",
+        layers=len(comp.layers))
+    clear = Color(1.0, 1.0, 1.0, 1.0)
+    r = Renderer(device)
+    taps = {}
+    t = time.perf_counter()
+    r.render_device(comp, w, h, clear, taps=taps)
+    torch.cuda.synchronize()
+    slot_bits = taps["rasterize_sort"][10]
+    say(label, first_frame_s=f"{time.perf_counter() - t:.2f}", caps=tuple(r._caps),
+        regrows=r.regrow_count, slot_bits=slot_bits, has_rasterize_taps="rasterize" in taps,
+        features=str(taps["fold"][12]).replace(" ", ""))
+    if slot_bits != 0 or "rasterize" in taps:
+        raise AssertionError(f"{label}: slot_bits {slot_bits}: not the two-key route")
+    from forma_tpu_torch.ops import expand_kernel as ek
+    from forma_tpu_torch.ops import grid_kernel as gk
+
+    fold_depths(label, taps["fold"])
+    two_key_units(label, taps["fold"])
+    res = {}
+    if frame_check:
+        res["expand"] = check_kernel("expand", ek.expand_params, ek.expand_params_torch,
+                                     taps["expand"], frame=label)
+        res["grid"] = check_kernel("grid", gk.grid_build, gk.grid_build_torch, taps["grid"],
+                                   frame=label)
+    res[counter] = check_fold(counter, taps["fold"], frame=label)
+    launches = None
+    if frame_check:
+        res["stages"] = two_key_stages(label, taps)
+        del taps
+        ref, _ = r.render_device(comp, w, h, clear, plain=True)
+        ref = ref[:h, :w].cpu().numpy()
+        launches = frame_path(label, "wide" if counter == "fold" else counter, r, comp,
+                              (w, h), ref)
+        if launches["rasterize"] != 0:
+            raise AssertionError(f"{label}: K4 launched {launches['rasterize']} times "
+                                 "on the two-key route")
+    return res, launches, r, comp
+
+
+def envelope_lattice(comp, n_layers: int = LATTICE_LAYERS, width: int = PARIS_W) -> None:
+    """The envelope tool's wide-key lattice (`tools/envelope_probe.py:89-115`)
+    with the port's classes: layer i a 3.5x2.5 rectangle at ((i % 400) *
+    width / 400, ((i // 400) % 350) * 3), solid fill ((i % 97) / 97,
+    (i % 31) / 31, (i % 7) / 7, 0.9)."""
+    from forma_tpu_torch import Color, Fill, Func, Order, Point, Props, Style
+    from forma_tpu_torch.path import PathBuilder
+
+    for i in range(n_layers):
+        x = (i % LATTICE_COLS) * (width / LATTICE_COLS)
+        y = ((i // LATTICE_COLS) % LATTICE_ROWS) * 3.0
+        layer = comp.get_mut_or_insert_default(Order(i))
+        layer.insert(PathBuilder().move_to(Point(x, y)).line_to(Point(x, y + 2.5))
+                     .line_to(Point(x + 3.5, y + 2.5)).line_to(Point(x + 3.5, y)).build())
+        layer.set_props(Props(func=Func.Draw(Style(fill=Fill.Solid(
+            Color((i % 97) / 97, (i % 31) / 31, (i % 7) / 7, 0.9))))))
+
+
+def forced_two_key_mix(device, label: str, build) -> tuple:
+    """A mix at 512x512 with the two-key route forced (`pipeline.
+    slot_bits_for` replaced by 0, as `tests/test_multichip_lines.py:290`
+    does in the JAX package): K3 `fold_clip` on its inputs against its
+    plain version, and the frame through `Renderer.render` bit-equal to
+    the same scene's packed-path frame on the card (0 differing pixels
+    expected: every accumulation is integer and the units fold in the same
+    order); returns (K3 numbers, launches)."""
+    from forma_tpu_torch import Color, Composition, Renderer
+    from forma_tpu_torch.ops import _build, pipeline
+
+    comp = Composition()
+    build(comp)
+    clear = Color(1.0, 1.0, 1.0, 1.0)
+    packed = Renderer(device).render(comp, MIX_W, MIX_H, clear)
+    real = pipeline.slot_bits_for
+    pipeline.slot_bits_for = lambda *_: 0
+    try:
+        r = Renderer(device)
+        taps = {}
+        r.render_device(comp, MIX_W, MIX_H, clear, taps=taps)
+        if taps["rasterize_sort"][10] != 0 or "rasterize" in taps:
+            raise AssertionError(f"{label}: the two-key route was not taken")
+        two_key_units(label, taps["fold"])
+        res = check_fold("fold_clip", taps["fold"], frame=label)
+        del taps
+        _build.reset_launches()
+        img = r.render(comp, MIX_W, MIX_H, clear)
+        launches = dict(_build.LAUNCHES)
+    finally:
+        pipeline.slot_bits_for = real
+    diff = np.abs(img.astype(int) - packed.astype(int))
+    say(label, forced_slot_bits=0, launches=launches, max_diff_vs_packed=int(diff.max()),
+        differing_pixels_vs_packed=int((diff > 0).any(axis=-1).sum()))
+    if diff.max() != 0:
+        raise AssertionError(f"{label}: the two-key frame differs from the packed frame")
+    for name in ("expand", "grid", "fold_clip"):
+        if launches[name] < 1:
+            raise AssertionError(f"{label}: {name} was never launched")
+    if launches["rasterize"] != 0:
+        raise AssertionError(f"{label}: K4 launched on the two-key route")
+    return res, launches
+
+
+def wide_key(device) -> tuple:
+    """Phase 10, the two-key route: (a) paris-30k at 7680x4320 (K1, K2 and
+    K3 `fold`, the stages, the frame); (b) paris-30k-styled and -textured
+    at 7680x4320 (K3 `fold_styled` and `fold_tex`); (c) the envelope
+    tool's 140,000-layer lattice at 1920x1080 (the kernels, the frame, and
+    its top-left strip against the port's CPU render of the first 2,000
+    layers); (d) the styled and textured mixes with the route forced,
+    against their packed frames.  Returns ({result key: numbers},
+    launches of the 7680x4320 run)."""
+    from forma_tpu_torch import Color, Composition, Renderer
+    from forma_tpu_torch.demos import scenes
+
+    size = (WIDE_W, WIDE_H)
+    out = {}
+    res, launches, r, comp = wide_frame(
+        device, "wide", lambda c: scenes.paris30k(c, *size), size, "fold", True)
+    out.update({"expand_wide": res["expand"], "grid_wide": res["grid"],
+                "fold_wide": res["fold"], "stages_wide": res["stages"]})
+    del r, comp
+    for label, counter in (("styled", "fold_styled"), ("textured", "fold_tex")):
+        res, _, r, comp = wide_frame(
+            device, f"wide-{label}",
+            lambda c, n=PARIS_SCENES[label]: getattr(scenes, n)(c, *size), size, counter,
+            False)
+        out[f"{counter}_wide"] = res[counter]
+        del r, comp
+
+    res, lattice_launches, r, comp = wide_frame(
+        device, "lattice", envelope_lattice, (PARIS_W, PARIS_H), "fold", True)
+    out["lattice"] = res
+    clear = Color(1.0, 1.0, 1.0, 1.0)
+    img = r.render(comp, PARIS_W, PARIS_H, clear)
+    del r, comp
+    strip = Composition()
+    envelope_lattice(strip, LATTICE_STRIP_LAYERS)
+    want = Renderer("cpu").render(strip, 64, 16, clear)
+    # Rows y < 15 are painted only by layers (i // 400) % 350 <= 4, that
+    # is i < 2,000 (`tools/envelope_probe.py:145-147`): the strip is exact.
+    diff = int(np.abs(img[:15, :64].astype(int) - want[:15, :64].astype(int)).max())
+    say("lattice", strip="64x15", strip_layers=LATTICE_STRIP_LAYERS,
+        max_diff_vs_cpu_strip=diff, painted=int((img[:15, :64, :3] != 255).any(-1).sum()))
+    if diff > 1:
+        raise AssertionError(f"lattice: top-left strip max diff {diff} > 1 vs the CPU render")
+
+    out["fold_clip_wide_mix"], _ = forced_two_key_mix(
+        device, "wide-mix", lambda c: scenes.styled_mix(c, 400, MIX_W, MIX_H))
+    out["fold_clip_wide_texmix"], _ = forced_two_key_mix(
+        device, "wide-texmix", lambda c: scenes.textured_mix(c, 300, MIX_W, MIX_H))
+    return out, launches
+
+
 def texture_probe(device) -> tuple:
-    """Phase 10: K5's three modes against the plain version at 8 blocks,
+    """Phase 11: K5's three modes against the plain version at 8 blocks,
     then its entry point's measurement at the paris shape with the counters
     reset and read, each mode checked and timed there; returns (the
     atlas_rowsel numbers, launches)."""
@@ -763,7 +1025,7 @@ def texture_probe(device) -> tuple:
 
 
 def fold_ablation(device, k3: dict) -> tuple:
-    """Phase 11: K8's six variants against the plain version on the first 8
+    """Phase 12: K8's six variants against the plain version on the first 8
     blocks of the TPU tool's inputs, `full` checked and timed at the full
     shape, then its entry point's measurement with the counters reset and
     read; each piece's cost beside K3 `fold` (`k3`, phase 3); returns
@@ -802,7 +1064,7 @@ def fold_ablation(device, k3: dict) -> tuple:
 
 
 def microbenchmarks(device) -> tuple:
-    """Phase 12: K6 (its grouping prep timed alone) and K7 against their
+    """Phase 13: K6 (its grouping prep timed alone) and K7 against their
     plain versions at the TPU tool's sizes, then the entry point's
     measurement with the counters reset and read; returns ({name:
     numbers}, launches)."""
@@ -836,7 +1098,7 @@ def microbenchmarks(device) -> tuple:
 
 
 def scatter_probe(device, k2_slots: int, k2_live: int, k2: dict) -> tuple:
-    """Phase 13: K9 in both input modes against the plain version, each
+    """Phase 14: K9 in both input modes against the plain version, each
     with its rate beside K2's on the phase 3 frame (`k2_slots` segment
     slots, `k2_live` of them live, K2's numbers `k2`), then the entry
     point's measurement with the counters reset and read; returns (the
@@ -1125,7 +1387,11 @@ def fold_timing(roots, scene: str) -> int:
         if root not in ports:
             (ports[root],) = import_port(root, "ops.fold_kernel")
         fold = ports[root].paint_fold
-        fn = lambda: fold(*args)  # noqa: E731
+        # A port from before the fold took src_u reads the grid row at
+        # src2_u: the same row on these table-mode inputs (src_u is src2_u).
+        fargs = args if "src_u" in inspect.signature(fold).parameters else (
+            args[:2] + args[3:])
+        fn = lambda: fold(*fargs)  # noqa: E731
         got = fn()
         torch.cuda.synchronize()
         err = max_abs_err((got,), (want,))
@@ -1223,16 +1489,26 @@ def main() -> int:
     kres["fold_clip"], launches["mix"] = mix_vs_cpu(
         device, "mix", lambda comp: scenes.styled_mix(comp, 400, MIX_W, MIX_H))
 
-    # 8. paris-30k-textured; 9. the textured mix; 10. K5
+    # 8. paris-30k-textured; 9. the textured mix
     kres["fold_tex"], launches["textured"] = paris_variant(device, "textured", "fold_tex")
     _, launches["texmix"] = mix_vs_cpu(
         device, "texmix", lambda comp: scenes.textured_mix(comp, 300, MIX_W, MIX_H))
+
+    # 10. the two-key route
+    wide, launches["wide"] = wide_key(device)
+    kres.update(wide)
+    say("wide", question="the two-key route's stages at 7680x4320", card=repr(card),
+        **{k: f"{v:.4f}" for k, v in wide["stages_wide"].items()},
+        k1_ms=f"{wide['expand_wide']['ms']:.4f}", k2_ms=f"{wide['grid_wide']['ms']:.4f}",
+        k3_ms=f"{wide['fold_wide']['ms']:.4f}")
+
+    # 11. K5
     kres["texture_probe"], launches["probe"] = texture_probe(device)
     say("k5", question="marginal cost of sampling textures in the fold",
         fold_tex_minus_fold_ms=f"{kres['fold_tex']['ms'] - kres['fold']['ms']:.4f}",
         fold_tex_ms=f"{kres['fold_tex']['ms']:.4f}", fold_ms=f"{kres['fold']['ms']:.4f}")
 
-    # 11. K8; 12. K6 and K7; 13. K9
+    # 12. K8; 13. K6 and K7; 14. K9
     kres["fold_ablate"], launches["ablate"] = fold_ablation(device, kres["fold"])
     micro, launches["micro"] = microbenchmarks(device)
     kres.update(micro)
@@ -1241,8 +1517,8 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[path][name], **kres[name]}
-        for name, src, rep, path in KERNELS
+         "launches": launches[path][name], "frame": frame, **kres[key]}
+        for name, src, rep, path, key, frame in KERNELS
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-// K3: the per-tile paint fold, table mode.
+// K3: the per-tile paint fold, in table mode and assembly mode.
 //
 // Replaces forma_tpu/ops/paint_pallas.py:paint_fold_pallas (_make_kernel and
 // _gradient_fill), which the TPU runs over 32-tile blocks whose unit rows are
@@ -10,12 +10,19 @@
 //   each; the pixels' RGBA (and, for clip frames, their clip masks) stay in
 //   registers over the tile's whole unit list (no depth cap);
 //   unit k of tile t is ust[t] + k; its run r = src2[unit] addresses the
-//   per-run tables directly (grid row, carry_in, carry_after, run tile x,
-//   style row), so no unit matrix is ever gathered;
-//   a unit is virtual when tx_s[r] differs from the tile's own x: it takes
-//   no grid and carry_after[r]; a real unit takes carry_in[r].  This holds
-//   only for presorted units, where src_u == src2_u (ROADMAP.md section 2,
-//   item 1a: the assembly mode reads the grid row at src_u instead);
+//   carry-chain-ordered tables (carry_in, carry_after, run tile x, style
+//   row) and g = src[unit] its grid row in run order, so no unit matrix is
+//   ever gathered.  After the packed-key sort the two orders are one (the
+//   TPU kernel's table mode, src_u == src2_u): the caller passes one array
+//   twice and the kernel loads one index.  After the two-key sort they
+//   differ (its assembly mode, paint.py:245-272): g is staged beside r, 32
+//   more ints of shared memory a block and one more coalesced index load
+//   a chunk, where permuting the grid into carry-chain order would move
+//   1 KiB per run;
+//   a unit is virtual when tx_s[r] differs from the tile's own x (its
+//   owner run lies in an earlier tile of the same row and layer; the TPU
+//   kernel reads FLAG_VIRTUAL, which agrees): it takes no grid and
+//   carry_after[r]; a real unit takes carry_in[r];
 //   the exclusive cover prefix along each 16-pixel row is an integer warp
 //   scan of the pairs' sums (__shfl_up_sync over 8-lane groups: one warp
 //   holds four rows) plus one add inside the thread;
@@ -50,12 +57,13 @@
 //      block b folds tile order[b] and writes it at its own place.  The
 //      solid fold's steps are cheap enough that the sort would cost more
 //      than the tail it removes, so it takes index order.
-//   2. The chain of dependent loads per unit (unit -> src2 -> run -> tx_s
-//      -> grid, carry and style rows).  The block walks its units in chunks
-//      of kChunk: one coalesced pass loads src2 and tx_s of the chunk, a
-//      second, every thread taking a share, copies each unit's carry row
-//      (carry_in or carry_after by virtuality: 16 i32) and its whole style
-//      row (gradient, stop and texture lanes included) into shared memory;
+//   2. The chain of dependent loads per unit (unit -> src2 and src -> run
+//      -> tx_s -> grid, carry and style rows).  The block walks its units
+//      in chunks of kChunk: one coalesced pass loads src2, src and tx_s of
+//      the chunk, a second, every thread taking a share, copies each unit's
+//      carry row (carry_in or carry_after by virtuality: 16 i32) and its
+//      whole style row (gradient, stop and texture lanes included) into
+//      shared memory;
 //      a step reads them as shared broadcasts and its grid words at an
 //      address known before the chunk's first step.
 //   3. Instructions per unit-pixel: the fold is bound by their issue (each
@@ -72,10 +80,11 @@
 //   instructions (the scan, the coverage and Over chains; a styled unit
 //   adds ~90 f32 ops per pixel for the gradient, stop chain and blend, a
 //   texture unit 18 and one dependent 16-byte texel load).  Dynamic shared
-//   memory per block: the chunk's carries (2 KB), runs and flags, and
-//   kChunk style rows (4 * kChunk * width bytes), above 48 KB only after
-//   cudaFuncSetAttribute; rows past ~1,790 lanes (gradients of ~350 stops)
-//   pass a block's 227 KB, and the launch fails with its CUDA error.  Each
+//   memory per block: the chunk's carries (2 KB), runs, grid rows and
+//   flags, and kChunk style rows (4 * kChunk * width bytes), above 48 KB
+//   only after cudaFuncSetAttribute; rows past ~1,790 lanes (gradients of
+//   ~350 stops) pass a block's 227 KB, and the launch fails with its CUDA
+//   error.  Each
 //   tile's pixels are written once, two per thread in 8-byte stores.
 //
 // Bit-equality with the plain PyTorch version (fold_kernel.paint_fold_torch):
@@ -296,10 +305,10 @@ constexpr int kVirt = 1;       // staged unit flags
 constexpr int kUnclip = 2;
 
 // Dynamic shared memory of a block, in 4-byte words: the chunk's carry
-// rows [kChunk, 16], runs and flags [kChunk] each, style rows [kChunk,
-// width].
+// rows [kChunk, 16], runs, grid rows and flags [kChunk] each, style rows
+// [kChunk, width].
 constexpr int smem_words(int width) {
-  return kChunk * 16 + 2 * kChunk + kChunk * width;
+  return kChunk * 16 + 3 * kChunk + kChunk * width;
 }
 
 struct Px {
@@ -362,7 +371,8 @@ __device__ __forceinline__ void over(Px& d, const Px& f, float src_a,
 template <bool kStyled, bool kClip, bool kTex>
 __global__ void __launch_bounds__(kThreads, (kStyled && !kTex) || kClip ? 10 : 12)
 fold_kernel(const int32_t* __restrict__ order, const int32_t* __restrict__ ust,
-            const int32_t* __restrict__ cnt, const int32_t* __restrict__ src2,
+            const int32_t* __restrict__ cnt, const int32_t* src,
+            const int32_t* src2,
             const int32_t* __restrict__ virt, const int32_t* __restrict__ grid,
             const int32_t* __restrict__ carry_in,
             const int32_t* __restrict__ carry_after,
@@ -374,7 +384,8 @@ fold_kernel(const int32_t* __restrict__ order, const int32_t* __restrict__ ust,
   extern __shared__ int32_t smem[];
   int32_t* carry_s = smem;
   int32_t* run_s = carry_s + kChunk * 16;
-  int32_t* flag_s = run_s + kChunk;
+  int32_t* grow_s = run_s + kChunk;
+  int32_t* flag_s = grow_s + kChunk;
   int32_t* style_s = flag_s + kChunk;
   // A solid/Over frame's row is rgba | fill rule at compile-time offsets.
   const int sw = kStyled ? lay.width : 5;
@@ -401,17 +412,21 @@ fold_kernel(const int32_t* __restrict__ order, const int32_t* __restrict__ ust,
   const int n = cnt[t];
   const int base = ust[t];
 
-  // Stages the chunk of units k0 ..: the run and flags of each unit, then
-  // its carry row and style row.  n is uniform across the block, so every
-  // thread reaches both barriers.
+  // One index array for both orders (table mode): uniform across the grid.
+  const bool table_mode = src == src2;
+
+  // Stages the chunk of units k0 ..: the run, grid row and flags of each
+  // unit, then its carry row and style row.  n is uniform across the
+  // block, so every thread reaches both barriers.
   auto stage = [&](int k0) {
     if (q < kChunk && k0 + q < n) {
       const int u = min(base + k0 + q, (int)(n_units - 1));
-      const int r = max(0, min(src2[u], (int)(run_cap - 1)));
+      const int r = max(0, min(__ldg(src2 + u), (int)(run_cap - 1)));
       int32_t f = tx_s[r] != tile_tx ? kVirt : 0;
       // FLAG_UNCLIPPED: the draw's governing full clip was dropped.
       if (kClip && (virt[u] & kUnclipped) != 0) f |= kUnclip;
       run_s[q] = r;
+      grow_s[q] = table_mode ? r : max(0, min(__ldg(src + u), (int)(run_cap - 1)));
       flag_s[q] = f;
     }
     __syncthreads();
@@ -438,7 +453,7 @@ fold_kernel(const int32_t* __restrict__ order, const int32_t* __restrict__ ust,
       int32_t area0 = 0, area1 = 0;
       if (!(f & kVirt)) {  // a virtual unit: no grid, cover 0, no scan
         const int2 g = *reinterpret_cast<const int2*>(
-            grid + (int64_t)run_s[j] * 256 + 2 * q);
+            grid + (int64_t)grow_s[j] * 256 + 2 * q);
         const int32_t cover0 = (int32_t)(int16_t)(g.x & 0xFFFF);
         area0 = (int32_t)((uint32_t)g.x - (uint32_t)cover0) >> 16;
         const int32_t cover1 = (int32_t)(int16_t)(g.y & 0xFFFF);
@@ -500,6 +515,7 @@ fold_kernel(const int32_t* __restrict__ order, const int32_t* __restrict__ ust,
 
 using FoldFn = void (*)(const int32_t*, const int32_t*, const int32_t*,
                         const int32_t*, const int32_t*, const int32_t*,
+                        const int32_t*,
                         const int32_t*, const int32_t*, const int32_t*,
                         const int32_t*, const float*, Lay, int64_t, int64_t,
                         int64_t, float*, Tex);
@@ -515,12 +531,15 @@ const FoldFn kFold[4] = {
 }  // namespace
 
 // order: the tiles in the order the blocks fold them (a permutation of 0 ..
-// n_tiles - 1), or null for index order.  layout (host memory): fr, blend,
+// n_tiles - 1), or null for index order.  src: each unit's grid row (run
+// order); src2: its run in carry-chain order; pass the same pointer twice
+// when the orders are one.  layout (host memory): fr, blend,
 // ft, func, layer, cend, clipped, grad, stops, width, ms, tex; an offset of
 // -1 leaves its feature out.  virt may be null for a frame without clips,
 // atlas for a frame without textures.
 extern "C" int forma_fold(const void* order, const void* ust, const void* cnt,
-                          const void* src2, const void* virt, const void* grid,
+                          const void* src, const void* src2, const void* virt,
+                          const void* grid,
                           const void* carry_in, const void* carry_after,
                           const void* tx_s, const void* style,
                           const void* clear, const void* layout,
@@ -544,7 +563,8 @@ extern "C" int forma_fold(const void* order, const void* ust, const void* cnt,
   }
   kFold[idx]<<<(unsigned)n_tiles, kThreads, smem, stream>>>(
       static_cast<const int32_t*>(order), static_cast<const int32_t*>(ust),
-      static_cast<const int32_t*>(cnt), static_cast<const int32_t*>(src2),
+      static_cast<const int32_t*>(cnt), static_cast<const int32_t*>(src),
+      static_cast<const int32_t*>(src2),
       static_cast<const int32_t*>(virt), static_cast<const int32_t*>(grid),
       static_cast<const int32_t*>(carry_in),
       static_cast<const int32_t*>(carry_after),

@@ -1,4 +1,4 @@
-"""K3: the per-tile paint fold (table mode).
+"""K3: the per-tile paint fold.
 
 Counterpart of `forma_tpu/ops/paint_pallas.py:90-174,177-483`
 (`style_layout`, `_gradient_fill`, `paint_fold_pallas`) and of its prep in
@@ -16,13 +16,21 @@ paint units bottom to top:
     src_a = fill alpha * coverage (* clip mask for clipped draws);
     the unit's blend mode (one of 16) mixes fill with dst, then Over.
 
-Units come from the per-run tables directly (grid row, carry_in,
-carry_after, run tile x, style row), addressed by `src2_u`.  A unit is
-virtual (a gap tile its layer covers without segments) exactly when its
-run's tile x differs from the unit's own tile x: virtual units take no
-grid and the run's carry_after; real units take carry_in.  Clip frames
-also read each unit's FLAG_UNCLIPPED bit from `virt_u` (the JAX package
-bakes it into an assembled unit matrix instead, `paint.py:260-270`).
+Units come from the per-run tables directly, with no unit matrix
+gathered: the grid row in run order, addressed by `src_u`; carry_in,
+carry_after, the run's tile x and the style row in carry-chain order,
+addressed by `src2_u`.  After the packed-key sort the two orders are one
+and `src_u == src2_u` (the JAX package's table mode, `paint.py:161-172`;
+callers then pass the same tensor twice, and the kernel loads one index);
+after the two-key sort they differ (its assembly mode, `paint.py:245-
+272`).  A unit is virtual (a gap tile its layer covers without segments)
+exactly when its run's tile x differs from the unit's own tile x, since
+a virtual unit's owner run lies in an earlier tile of the same row and
+layer; JAX reads `virt_u & FLAG_VIRTUAL`, which agrees.  Virtual units
+take no grid and the run's carry_after; real units take carry_in.  Clip
+frames also read each unit's FLAG_UNCLIPPED bit from `virt_u` (the JAX
+package bakes it into an assembled unit matrix instead,
+`paint.py:260-270`).
 
 The CUDA kernel (`csrc/fold.cu`) runs one block per tile and two pixels
 per thread (the styled, textured and clip folds deepest tiles first:
@@ -161,16 +169,19 @@ def tile_order(cnt):
     return torch.argsort(cnt, descending=True, stable=True).to(torch.int32)
 
 
-def paint_fold(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s, tx_s,
-               style_s, clear, tiles_x: int, features, ms: int, atlas=None):
+def paint_fold(ust, cnt, src_u, src2_u, virt_u, grid, carry_in_s, carry_after_s,
+               tx_s, style_s, clear, tiles_x: int, features, ms: int, atlas=None):
     """Folds every tile's units; returns linear f32 [T, 4 * 256]
     (channel-major blocks of 256 pixels, pixel j = (y = j // 16, x = j % 16),
     at global pixel (16 * (t % tiles_x) + x, 16 * (t // tiles_x) + y)).
 
-    ust, cnt i32 [T]; src2_u i32 [U] unit -> run; virt_u i32 [U] unit
-    flags (read for FLAG_UNCLIPPED by clip frames; None otherwise); grid
-    i32 [R, 256]; carry_in_s, carry_after_s i32 [R, 16]; tx_s i32 [R];
-    style_s i32 [R, style_layout(features, ms).width]; clear f32 [4];
+    ust, cnt i32 [T]; src_u i32 [U] unit -> its grid row (run order);
+    src2_u i32 [U] unit -> run in carry-chain order (the same tensor as
+    src_u when the orders are one); virt_u i32 [U] unit flags (read for
+    FLAG_UNCLIPPED by clip frames; None otherwise); grid i32 [R, 256];
+    carry_in_s, carry_after_s, tx_s and style_s in carry-chain order:
+    i32 [R, 16], [R, 16], [R] and [R, style_layout(features, ms).width];
+    clear f32 [4];
     atlas f32 [AH, AW, 4], read by texture frames (None otherwise).
     CUDA tensors launch `forma_fold`; CPU tensors take `paint_fold_torch`.
     The styled, textured and clip folds take the tiles in `tile_order`
@@ -178,7 +189,7 @@ def paint_fold(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s, tx_s,
     index order: its unit step is cheap enough that the deep tiles' tail
     costs less than the sort (on the H100, PERF.md)."""
     if not grid.is_cuda:
-        return paint_fold_torch(ust, cnt, src2_u, virt_u, grid, carry_in_s,
+        return paint_fold_torch(ust, cnt, src_u, src2_u, virt_u, grid, carry_in_s,
                                 carry_after_s, tx_s, style_s, clear, tiles_x,
                                 features, ms, atlas)
     counter, lay, layout = _launch_layout(features, ms)
@@ -187,6 +198,7 @@ def paint_fold(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s, tx_s,
     U = src2_u.shape[0]
     _build.check(ust, "ust", torch.int32, (T,))
     _build.check(cnt, "cnt", torch.int32, (T,))
+    _build.check(src_u, "src_u", torch.int32, (U,))
     _build.check(src2_u, "src2_u", torch.int32, (U,))
     if features.has_clip:
         _build.check(virt_u, "virt_u", torch.int32, (U,))
@@ -213,7 +225,7 @@ def paint_fold(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s, tx_s,
         order = tile_order(cnt) if deep_first else None
         _build.launch(
             "forma_fold", counter, None if order is None else order.data_ptr(),
-            ust.data_ptr(), cnt.data_ptr(), src2_u.data_ptr(),
+            ust.data_ptr(), cnt.data_ptr(), src_u.data_ptr(), src2_u.data_ptr(),
             virt_u.data_ptr() if features.has_clip else None, grid.data_ptr(),
             carry_in_s.data_ptr(), carry_after_s.data_ptr(), tx_s.data_ptr(),
             style_s.data_ptr(), clear.data_ptr(), layout, T, tiles_x, R, U,
@@ -223,9 +235,9 @@ def paint_fold(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s, tx_s,
     return out
 
 
-def paint_fold_torch(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s,
-                     tx_s, style_s, clear, tiles_x: int, features, ms: int,
-                     atlas=None):
+def paint_fold_torch(ust, cnt, src_u, src2_u, virt_u, grid, carry_in_s,
+                     carry_after_s, tx_s, style_s, clear, tiles_x: int, features,
+                     ms: int, atlas=None):
     """Plain PyTorch version of `paint_fold`: a loop over k that advances
     every tile by one unit, with the Pallas kernel's expression trees
     (`paint_pallas.py:327-415`) and the wave fold's texture select
@@ -257,9 +269,10 @@ def paint_fold_torch(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s,
         present = (cnt > k)[:, None]  # [T, 1]
         u = torch.clamp(ust.long() + k, max=U - 1)
         r = torch.clamp(src2_u[u].long(), 0, R - 1)
+        g = torch.clamp(src_u[u].long(), 0, R - 1)
         st = style_s[r]  # [T, W]
         virt = (tx_s[r].long() != ttx)[:, None]  # [T, 1]
-        area, cover = unpack_grid(grid[r])  # [T, 256] each
+        area, cover = unpack_grid(grid[g])  # [T, 256] each
         c16 = torch.where(virt, carry_after_s[r], carry_in_s[r])
         cover = torch.where(virt, 0, cover)
         area = torch.where(virt, 0, area)
@@ -329,17 +342,20 @@ def paint_fold_torch(ust, cnt, src2_u, virt_u, grid, carry_in_s, carry_after_s,
     return torch.cat(dst, dim=1)
 
 
-def fold_tiles(key_u, u_valid, src2_u, virt_u, grid, carry_in_s, carry_after_s,
-               tx_s, style_s, clear, rows: int, tiles_x: int, k_slots: int,
-               features, ms: int, atlas=None, plain: bool = False, taps=None):
-    """Table-mode prep + fold; returns the frame's tiles as linear f32
-    [T, TH, TW, 4] (the counterpart of `paint._paint_fold_pallas` with
-    `presorted=True`).  `atlas` is read by texture frames only.  `plain`
-    runs K3's plain PyTorch version on any device; `taps` (a dict)
-    receives K3's inputs under "fold"."""
+def fold_tiles(key_u, u_valid, src_u, src2_u, virt_u, grid, carry_in_s,
+               carry_after_s, tx_s, style_s, clear, rows: int, tiles_x: int,
+               k_slots: int, features, ms: int, atlas=None, plain: bool = False,
+               taps=None):
+    """Prep + fold; returns the frame's tiles as linear f32 [T, TH, TW, 4]
+    (the counterpart of `paint._paint_fold_pallas`, in table mode when
+    `src_u is src2_u`, in assembly mode otherwise).  `atlas` is read by
+    texture frames only.  `plain` runs K3's plain PyTorch version on any
+    device; `taps` (a dict) receives K3's inputs under "fold"."""
     ust, cnt = tile_spans(key_u, u_valid, rows, tiles_x, k_slots)
+    src2 = src2_u.to(torch.int32).contiguous()
+    src = src2 if src_u is src2_u else src_u.to(torch.int32).contiguous()
     args = (
-        ust, cnt, src2_u.to(torch.int32).contiguous(),
+        ust, cnt, src, src2,
         virt_u.to(torch.int32).contiguous() if features.has_clip else None,
         grid.contiguous(), carry_in_s.contiguous(), carry_after_s.contiguous(),
         tx_s.contiguous(), style_s.contiguous(), clear.contiguous(), tiles_x,

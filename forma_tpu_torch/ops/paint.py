@@ -1,9 +1,9 @@
 """Device paint: unit passes and the per-tile fold over run-indexed grids.
 
-Counterpart of `forma_tpu/ops/paint.py:85-141,331-611,624-780` on the
-presorted packed-key path, where the fold runs in table mode (K3,
-`fold_kernel.fold_tiles`): solid, gradient and texture fills, the 16 blend
-modes and clip masks.  The JAX package paints texture frames on its XLA
+Counterpart of `forma_tpu/ops/paint.py:85-141,331-611,624-780`; the fold
+(K3, `fold_kernel.fold_tiles`) reads the per-run tables directly, on
+either sort key: solid, gradient and texture fills, the 16 blend modes
+and clip masks.  The JAX package paints texture frames on its XLA
 wave fold (`paint.py:969-981`); the port samples the atlas inside K3.
 """
 
@@ -358,7 +358,8 @@ def _renumber_units(key_u, layer_u, src_u, src2_u, virt_u, keep):
 def paint(
     key_u,  # int64 [U] (u32 values) unit (tile) keys, (tile, layer)-sorted
     u_valid,  # bool [U]
-    src2_u,  # i32 [U] run index per unit
+    src_u,  # i32 [U] run index per unit (run order: the grid row)
+    src2_u,  # i32 [U] run index per unit (carry-chain order: carry, style, tx)
     virt_u,  # i32 [U] FLAG_* bits per unit (FLAG_UNCLIPPED read by clip frames)
     grid,  # i32 [R, 256] packed area|cover
     carry_in_s,  # i32 [R, 16]
@@ -377,8 +378,8 @@ def paint(
 ):
     """Returns the painted frame as linear f32 [rows*16, tiles_x*16, 4]."""
     frame_t = fold_tiles(
-        key_u, u_valid, src2_u, virt_u, grid, carry_in_s, carry_after_s, tx_s,
-        style_s, clear, rows, tiles_x, k_slots, features, ms, atlas,
+        key_u, u_valid, src_u, src2_u, virt_u, grid, carry_in_s, carry_after_s,
+        tx_s, style_s, clear, rows, tiles_x, k_slots, features, ms, atlas,
         plain=plain, taps=taps,
     )
     frame = frame_t.reshape(rows, tiles_x, TH, TW, 4)

@@ -7,9 +7,14 @@ capacity buckets, and returns the packed frame with a small diagnostics
 vector (actual totals vs capacities); the renderer reads both once and
 re-renders with bigger buckets on overflow.
 
-Ported: the packed single-key path (`slot_bits > 0`), uncached and
-uncropped, for solid, gradient and texture fills, the 16 blend modes and
-clips.  The wide-key fallback, damage cache and crop are not ported.
+Ported: uncached, uncropped frames for solid, gradient and texture
+fills, the 16 blend modes and clips, on both sort keys: the packed
+single key (`slot_bits > 0`) and, where [row | slot | tx] passes 31 bits,
+the two-key route (`slot_bits == 0`: K1 and the emit in PyTorch, the
+int64 two-key sort, the runs re-sorted into carry-chain order, and K3
+reading each unit's grid row by `src_u`), as the JAX package routes them
+(`forma_tpu/ops/pipeline.py:98-110,123,147`).  The damage cache and crop
+are not ported.
 """
 
 from __future__ import annotations
@@ -77,7 +82,7 @@ def _core(
     return _back(
         key_hi, key_lo, payload, v_total, total_segs,
         st, clear, rows, tiles_x, caps, features, channels,
-        plain=plain, taps=taps,
+        presorted=slot_bits > 0, plain=plain, taps=taps,
     )
 
 
@@ -86,6 +91,8 @@ def _back(
     v_total, total_segs,  # diagnostics scalars from the front half
     st, clear, rows: int, tiles_x: int,
     caps: Caps, features: Features, channels,
+    presorted: bool = False,  # sorted by the packed key: runs arrive in
+    #                           carry-chain order, and src_u == src2_u
     plain: bool = False, taps=None,
 ):
     """Everything after the segment sort: runs, carries, units, the
@@ -113,7 +120,7 @@ def _back(
             st["clip_n"], st["is_clipped"], st["blend"], st["fill_type"],
             st["color"], st["grad"], st["stops"], st["tex"],
         ),
-        plain=plain, taps=taps,
+        presorted=presorted, plain=plain, taps=taps,
     )
 
     key_u, layer_u, src_u, src2_u, virt_u, k_u, u_valid, _ = (
@@ -145,8 +152,11 @@ def _back(
         _paint._renumber_units(key_u, layer_u, src_u, src2_u, virt_u, keep)
     )
 
+    # Presorted, src_u == src2_u: passing src2_u for both keeps the fold
+    # in table mode, one index load per unit.
     frame = _paint.paint(
-        key_u, u_valid, src2_u, virt_u, rd["grid"], rd["carry_in_s"],
+        key_u, u_valid, src2_u if presorted else src_u, src2_u, virt_u,
+        rd["grid"], rd["carry_in_s"],
         rd["carry_after_s"], rd["style_s"], rd["tx_s"], clear,
         rows, tiles_x, caps.k, features, st["stops"].shape[1], st["atlas"],
         plain=plain, taps=taps,

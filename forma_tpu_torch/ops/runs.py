@@ -1,15 +1,19 @@
 """Run extraction, cover-carry chains and paint-unit expansion.
 
-Counterpart of `forma_tpu/ops/runs.py:100-433` on the presorted packed-key
-path.  The reference's sequential tile walk with per-layer carried covers
+Counterpart of `forma_tpu/ops/runs.py:100-433`.  The reference's
+sequential tile walk with per-layer carried covers
 (`painter/mod.rs:486-568`) becomes three data-parallel steps over the
 sorted segments:
 
 1. Runs: (tile_y, tile_x, layer) groups; their areas and covers sum into
    per-run 16x16 packed grids (K2, `grid_kernel.grid_build`), which also
    emits each run's keys.
-2. Carry chains: runs already arrive in (row, layer, tile_x) order, so a
-   segmented prefix sum of the cover row sums gives every run's carry-in.
+2. Carry chains: a segmented prefix sum of the cover row sums over runs in
+   (row, layer, tile_x) order gives every run's carry-in.  After the
+   packed-key sort the runs already arrive in that order
+   (`presorted=True`); after the two-key sort they arrive in (row, tile_x,
+   layer) order and one int64 sort re-orders them, its inverse
+   permutation taking each run to its place there.
 3. Virtual units: tiles a layer fully covers between two of its runs paint
    from the carry alone (`layer_workbench/mod.rs:196-234`).
 """
@@ -22,7 +26,7 @@ from .. import consts
 
 from ._u32 import MASK32, SENTINEL
 from .grid_kernel import grid_build, grid_build_torch
-from .rasterize import TX_BITS, unpack_payload
+from .rasterize import TWO_KEY_SENTINEL, TX_BITS, unpack_payload
 
 TW = consts.TILE_WIDTH
 LAYER_MASK = consts.LAYER_LIMIT
@@ -57,14 +61,26 @@ def run_data(
     run_cap: int,
     tiles_x: int,
     style_pack,  # i32 [SL, SW] per-slot style rows (paint.style_pack_for_fold)
+    presorted: bool = False,  # segments sorted by the packed [row|slot|tx] key
     plain: bool = False,  # K2's plain PyTorch version on any device
-    taps=None,  # dict: receives K2's inputs
+    taps=None,  # dict: receives K2's inputs, and the stage's under "run_data"
 ):
-    """Per-run grids and carry chains for segments sorted by the packed
-    [row | slot | tx] key (`run_data(presorted=True)`): runs already arrive
-    in carry-chain (row, layer, tile_x) order, so the sorted domain IS the
-    original run order.  Returns a dict of per-run arrays."""
+    """Per-run grids and carry chains.  Returns a dict of per-run arrays:
+    `run_hi`, `run_layer`, `r_valid`, `real_flags` and `grid` in run order,
+    `inv` (run -> its position in carry-chain order), and the rest in
+    carry-chain (row, layer, tile_x) order.
+
+    `presorted`: runs already arrive in carry-chain order (the packed-key
+    sort), so that order IS the run order and `inv` the identity.
+    Otherwise (the two-key sort) the runs sort by the int64 key `key2 <<
+    TX_BITS | txb` (`forma_tpu/ops/runs.py:235-249`), invalid runs last
+    under `TWO_KEY_SENTINEL`; the valid keys are unique, so the unstable
+    sort gives JAX's permutation on every valid run."""
     dev = key_hi.device
+    if taps is not None:
+        taps["run_data"] = (key_hi, key_lo, payload, run_id, new_run, num_runs, st_pidx,
+                            st_fill_rule, st_opaque, st_isclip, st_solid, run_cap,
+                            tiles_x, style_pack)
     lx, ly, area, cover = unpack_payload(payload)
     rid = torch.clamp(run_id, max=run_cap - 1).to(torch.int32)
     cell = ly * TW + lx
@@ -85,9 +101,20 @@ def run_data(
 
     rowb = run_hi >> TX_BITS  # biased row + 1
     txb = run_hi & ((1 << TX_BITS) - 1)  # biased tile_x + 1
-    key2_s = torch.where(r_valid, ((rowb << 21) | run_layer) & MASK32, sentinel)
-    txb_s = torch.where(r_valid, txb, sentinel)
-    rowcov_s = rowcov.long()
+    key2 = torch.where(r_valid, ((rowb << 21) | run_layer) & MASK32, sentinel)
+    txb_key = torch.where(r_valid, txb, sentinel)
+    if presorted:
+        key2_s, txb_s, rowcov_s = key2, txb_key, rowcov.long()
+        inv = r.to(torch.int32)
+    else:
+        # key2 < 2^32 and txb < 2^TX_BITS: the pair fits 45 bits.
+        key = torch.where(r_valid, (key2 << TX_BITS) | txb,
+                          torch.full_like(key2, TWO_KEY_SENTINEL))
+        orig = torch.sort(key, stable=False).indices
+        key2_s, txb_s = key2[orig], txb_key[orig]
+        inv = torch.empty(run_cap, dtype=torch.int32, device=dev)
+        inv[orig] = r.to(torch.int32)  # the inverse permutation
+        rowcov_s = rowcov[orig].long()
 
     new_group = key2_s != _roll1(key2_s)
     new_group[0] = True
@@ -144,6 +171,8 @@ def run_data(
         | (full_s & isclip_s).to(torch.int32) * 16  # FLAG_FULL_CLIP
     )
     real_flags = isclip_s.to(torch.int32) * 4
+    if not presorted:
+        real_flags = torch.empty_like(real_flags).index_copy_(0, orig, real_flags)
 
     return dict(
         run_hi=run_hi,
@@ -152,7 +181,7 @@ def run_data(
         real_flags=real_flags,
         grid=grid,
         style_s=style_s,
-        inv=r.to(torch.int32),  # identity: sorted domain == run order
+        inv=inv,
         key2_s=key2_s,
         tx_s=tx_s,
         carry_in_s=carry_in_s.to(torch.int32),

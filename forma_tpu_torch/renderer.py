@@ -48,10 +48,10 @@ def _bucket_fine(n: int, lo: int = 256) -> int:
     return p * 2
 
 
-def _not_ported(what: str, item: str):
+def _not_ported(what: str, items: str):
     return NotImplementedError(
         f"{what} is not ported to forma_tpu_torch yet: ROADMAP.md section 1, "
-        f"item {item}"
+        f"{'items' if ' and ' in items else 'item'} {items}"
     )
 
 
@@ -66,7 +66,9 @@ class Renderer:
     expand + emit kernel, the default and the faster) or `"split"` (the
     expand kernel, then the emit in PyTorch).  Both compute the same
     segments; `"split"` is not a tuning knob, it exists so that the expand
-    kernel stays on a path that is driven and checked."""
+    kernel stays on a path that is driven and checked.  The path applies
+    to frames whose sort key packs into one word; a frame with more layer
+    slots than that key holds takes the two-key route (`render_device`)."""
 
     def __init__(
         self, device=None, caps: Optional[_pipe.Caps] = None, expand: str = "fused"
@@ -280,7 +282,7 @@ class Renderer:
     ) -> np.ndarray:
         """Renders and returns u8 [height, width, 4] in channel order."""
         if crop is not None:
-            raise _not_ported("crop", "11 (incremental frames)")
+            raise _not_ported("crop", "5 (incremental frames)")
         frame, _ = self.render_device(composition, width, height, clear_color, channels)
         return frame[:height, :width].cpu().numpy()
 
@@ -296,7 +298,17 @@ class Renderer:
     ):
         """Renders; returns (u8 frame tensor [rows*16, tiles_x*16, C] on the
         device, diag as numpy).  The diagnostics cross to the host once per
-        attempt; on overflow the buckets grow and the frame re-renders."""
+        attempt; on overflow the buckets grow and the frame re-renders.
+
+        Scope: whole, uncached frames on one device, every fill, blend
+        mode and clip, on either sort key.  Where [row | slot | tx] fits
+        31 bits (`pipeline.slot_bits_for`), the packed key through the
+        renderer's `expand` path; otherwise the two-key route, which takes
+        the expand kernel (K1) and the emit in PyTorch whatever `expand`
+        says (the fused kernel packs only the one-word key), then the
+        grid and fold kernels as every frame does.  On a CUDA device a
+        kernel that fails to build or launch raises; nothing falls back to
+        a plain version."""
         composition.compact_geom()
         composition._shared.props_interner.compact()
 
@@ -360,13 +372,14 @@ class Renderer:
     # -- not in this slice -------------------------------------------------
 
     def render_into(self, *args, **kwargs):
-        raise _not_ported("render_into (buffers, pipelined readback)", "11 (incremental frames)")
+        raise _not_ported("render_into (buffers, pipelined readback)",
+                          "1 (buffers) and 5 (pipelined readback)")
 
     def create_buffer_layer_cache(self):
-        raise _not_ported("the damage cache", "11 (incremental frames)")
+        raise _not_ported("the damage cache", "5 (incremental frames)")
 
     def render_device_sharded(self, *args, **kwargs):
-        raise _not_ported("the framebuffer-sharded path", "13 (multi-device paths)")
+        raise _not_ported("the framebuffer-sharded path", "7 (multi-device paths)")
 
     def render_device_sharded_lines(self, *args, **kwargs):
-        raise _not_ported("the line-sharded path", "13 (multi-device paths)")
+        raise _not_ported("the line-sharded path", "7 (multi-device paths)")

@@ -164,9 +164,9 @@ def _spy(monkeypatch, module, name):
 def _fold_inputs(build, w, h, monkeypatch):
     """The arguments `paint.paint` hands to `fold_tiles` when the port's
     own pipeline renders the scene (after one render grew the buckets):
-    (key_u, u_valid, src2_u, virt_u, grid, carry_in_s, carry_after_s,
-    tx_s, style_s, clear, rows, tiles_x, k_slots, features, ms, atlas), and
-    the diag vector."""
+    (key_u, u_valid, src_u, src2_u, virt_u, grid, carry_in_s,
+    carry_after_s, tx_s, style_s, clear, rows, tiles_x, k_slots, features,
+    ms, atlas), and the diag vector."""
     jax_comp = Composition()
     build(jax_comp)
     comp = composition_from_jax(jax_comp)
@@ -181,7 +181,7 @@ def _jax_fold(args):
     """JAX's interpret-mode Pallas fold on the same inputs.  On the
     presorted path src_u == src2_u, and the prep reads neither layer_u nor
     k_u (zeros here)."""
-    (key_u, u_valid, src2_u, virt_u, grid, ci, ca, tx_s, style_s, clear,
+    (key_u, u_valid, src_u, src2_u, virt_u, grid, ci, ca, tx_s, style_s, clear,
      rows, tiles_x, k_slots, features, ms, _atlas) = args
 
     def j(t, dt):
@@ -190,7 +190,7 @@ def _jax_fold(args):
     zeros = jnp.zeros(key_u.shape, jnp.int32)
     return np.asarray(
         jpaint._paint_fold_pallas(
-            j(key_u, np.uint32), zeros, j(src2_u, np.int32), j(src2_u, np.int32),
+            j(key_u, np.uint32), zeros, j(src_u, np.int32), j(src2_u, np.int32),
             j(virt_u, np.int32), zeros, jnp.asarray(u_valid.numpy()),
             j(grid, np.int32), j(ci, np.int32), j(ca, np.int32),
             j(style_s, np.int32), jnp.asarray(clear.numpy()),
@@ -207,7 +207,7 @@ def _jax_fold(args):
 )
 def test_fold_matches_pallas_table_mode(build, w, h, monkeypatch):
     args, diag = _fold_inputs(build, w, h, monkeypatch)
-    virt_u, u_valid, features = args[3], args[1], args[13]
+    virt_u, u_valid, features = args[4], args[1], args[14]
     assert features == paint.Features()
     if build is _deep_stack:
         assert diag[DIAG_K] > 16
@@ -216,7 +216,7 @@ def test_fold_matches_pallas_table_mode(build, w, h, monkeypatch):
 
     got = fold_tiles(*args).numpy()
     want = _jax_fold(args)
-    rows, tiles_x = args[10], args[11]
+    rows, tiles_x = args[11], args[12]
     assert got.shape == want.shape == (rows * tiles_x, 16, 16, 4)
     assert np.abs(got - want).max() <= 1e-6
     assert (got != CLEAR.to_array()).any()  # something painted
@@ -237,14 +237,14 @@ def test_styled_fold_matches_pallas(name, build, w, h, tol, monkeypatch):
     """Gradients, blend modes and clips through the plain fold against the
     JAX kernel in interpret mode (tolerances: module docstring)."""
     args, _ = _fold_inputs(build, w, h, monkeypatch)
-    features = args[13]
+    features = args[14]
     if name == "gradient_fills":
         assert features.has_gradient and not features.has_clip
     if name == "blend_modes":
         assert features.blend_modes == tuple(range(16))
     if name == "clip_masks":
         assert features.has_clip
-        assert args[8].shape[1] == style_layout(features, args[14]).width == 9
+        assert args[9].shape[1] == style_layout(features, args[15]).width == 9
     got = fold_tiles(*args).numpy()
     want = _jax_fold(args)
     assert got.shape == want.shape
@@ -341,11 +341,11 @@ def test_skip_trivial_clips_keep_matches_jax(build, monkeypatch):
 def test_fold_cpu_dispatch_and_spans(monkeypatch):
     """CPU tensors take the plain fold; spans cover every valid unit."""
     args, _ = _fold_inputs(_clip_masks, 64, 64, monkeypatch)
-    key_u, u_valid, src2_u, virt_u = args[:4]
-    rows, tiles_x, k_slots, features, ms = args[10:15]
+    key_u, u_valid, src_u, src2_u, virt_u = args[:5]
+    rows, tiles_x, k_slots, features, ms = args[11:16]
     ust, cnt = tile_spans(key_u, u_valid, rows, tiles_x, k_slots)
     assert int(cnt.sum()) == int(u_valid.sum())
-    fargs = (ust, cnt, src2_u, virt_u, *args[4:10], tiles_x, features, ms)
+    fargs = (ust, cnt, src_u, src2_u, virt_u, *args[5:11], tiles_x, features, ms)
     assert torch.equal(paint_fold(*fargs), paint_fold_torch(*fargs))
 
 
@@ -387,12 +387,12 @@ def test_fold_is_bit_equal_to_op_by_op_numpy(monkeypatch):
     (XLA's CPU build of the interpret-mode Pallas kernel differs from both
     by at most a few ulp on rare pixels, hence the 1e-6 bound above.)"""
     args, _ = _fold_inputs(_deep_stack, 32, 32, monkeypatch)
-    key_u, u_valid, src2_u = args[:3]
-    grid, ci, ca, tx_s, style_s, clear = args[4:10]
-    rows, tiles_x, k_slots, features, ms = args[10:15]
+    key_u, u_valid, src_u, src2_u = args[:4]
+    grid, ci, ca, tx_s, style_s, clear = args[5:11]
+    rows, tiles_x, k_slots, features, ms = args[11:16]
     ust, cnt = tile_spans(key_u, u_valid, rows, tiles_x, k_slots)
-    got = paint_fold_torch(ust, cnt, src2_u, None, grid, ci, ca, tx_s, style_s, clear,
-                           tiles_x, features, ms).numpy()
+    got = paint_fold_torch(ust, cnt, src_u, src2_u, None, grid, ci, ca, tx_s, style_s,
+                           clear, tiles_x, features, ms).numpy()
     want = _fold_numpy(*(a.numpy() for a in (ust, cnt, src2_u, grid, ci, ca, tx_s,
                                              style_s, clear)), tiles_x)
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

@@ -140,10 +140,3 @@ def test_rasterize_sort_matches_jax():
     assert diff <= 1e-4 * v_cap * 8, diff
     n_valid = int((port[0] != 0xFFFFFFFF).sum())
     assert n_valid > 1000  # the scene really rasterizes
-
-
-def test_two_key_path_not_ported():
-    args = _scene(4, L=20)
-    p, s, l, e = (torch.from_numpy(x) for x in _port_line_setup(args))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rasterize.rasterize_sort(p, s, l, e, e[-1], 512, 8, ROWS, TILES_X, 0, slot_bits=0)

@@ -178,8 +178,8 @@ def test_texture_fold_matches_jax_wave_fold(name, monkeypatch):
     calls = _spy(monkeypatch, paint, "paint")
     r.render(port_comp, w, h, clear)
     key_u, layer_u, src_u, src2_u, virt_u, k_u, u_valid, _ = units[-1]
-    (_, _, _, _, grid, ci, ca, _, _, clear_t, rows, tiles_x, k_slots, features,
-     ms, atlas) = calls[-1][:16]
+    (_, _, _, _, _, grid, ci, ca, _, _, clear_t, rows, tiles_x, k_slots, features,
+     ms, atlas) = calls[-1][:17]
     assert features.has_texture
     st = r._styles_cache[0]
     got = paint.paint(*calls[-1]).numpy()
@@ -315,5 +315,5 @@ def test_texture_fold_dispatch_on_cpu(monkeypatch):
     taps = {}
     Renderer("cpu").render_device(composition_from_jax(comp), w, h, clear, taps=taps)
     args = taps["fold"]
-    assert variant(args[11]) == "fold_tex" and args[13] is not None
+    assert variant(args[12]) == "fold_tex" and args[14] is not None
     assert torch.equal(fold_kernel.paint_fold(*args), fold_kernel.paint_fold_torch(*args))
