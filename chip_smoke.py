@@ -104,12 +104,49 @@ failure exits non-zero:
    Phases 12-14 also time each kernel as 20 calls captured in one CUDA
    graph (`ms_graph`, and the library call's where it allows a graph):
    the device time alone, where `ms` of a ~20 us kernel reads its
-   wrapper's host rate; the entry points report that device time.
+   wrapper's host rate; the entry points report that device time;
+15. crop: paris-30k-styled and -textured at 1920x1080 (the compositions
+   of phases 6 and 8) cropped to tile rows [20, 50) and tile columns
+   [10, 100) through `Renderer.render_into(crop=)` with no cache: K3
+   `fold_styled` and `fold_tex` on the cropped frame's own inputs
+   (row_lo 20) against their plain versions as in phase 3, the rect
+   against the uncropped frame (0 differing pixels), every byte outside
+   it untouched, the cropped frame's ms beside the full frame's (5 each),
+   launches counted over one cropped render; then a damage-cached
+   paris-30k frame after 1% of its layers moved: K3 `fold` with its
+   tile-skip mask against its plain version, the frame against a fresh
+   render (equal) and its damage partial;
+16. the spaceship at 1920x1080 (`demos/spaceship.py`, the JAX bench's
+   config, `bench.py:104-151`) through the damage cache: 3 warm-up frames,
+   60 synchronous `render_into` frames (launches counted over those calls
+   alone), each byte-equal to a fresh uncached `Renderer.render` of the
+   same state; an unchanged scene (no launch, nothing read back or
+   written); K3 `fold` on a cached frame's own inputs against its plain
+   version; then the same 63 steps from a fresh ship, the last 60 with
+   `pipelined=True` and a `flush_pending()`, each buffer byte-equal to
+   the synchronous buffer of one frame earlier; ms per frame (median,
+   min, max) of both, damaged tiles and bytes read back per frame beside
+   the full frame's 8.3 MB, regrow_count, DIAG_K against the uncached
+   frame's, and a `torch.profiler` window of 10 more cached frames (wall
+   and device ms a frame, the device's busy share, launches a frame);
+17. animation: paris-30k at 1920x1080 and at 3840x2160 rotated as the
+   JAX bench's animated configs (`bench.py:207-235`): warm-up, then 10
+   frames of `render_device(check_caps=False)` under
+   `torch.cuda.set_sync_debug_mode("warn")` (any synchronising call
+   fails, printed by source line), fenced once at the end, their
+   diagnostics checked after the loop (no bucket overflowed), beside the
+   same frames with `check_caps=True` (no regrow); at 3840x2160 the packed
+   key (slot_bits > 0) and the last frame against the plain path on the
+   card (max channel diff <= 1); then a fresh renderer zooms each scene
+   from 0.6 to 0.9 (1.5x) over 10 frames after `announce_max_scale(1.5)`
+   with no regrow after its two warm-up frames.
 
 The last three lines are a JSON object with per-kernel results (K1 on the
 7680x4320 two-key frame; K3 once per specialisation, solid, styled,
-textured, clip, and `fold` again on the 7680x4320 two-key frame; K5 in
-its atlas_rowsel mode; K8 `full`; K9 `independent`; each entry names its
+textured, clip, and `fold` again on the 7680x4320 two-key frame, then
+`fold_styled` on phase 15's cropped frame (row_lo 20) and `fold` on a
+phase 16 spaceship frame (its unchanged tiles skipped); K5 in its
+atlas_rowsel mode; K8 `full`; K9 `independent`; each entry names its
 frame), the card's name and power limit, and the status line
 `{"ok": true, "device": {...}}`.
 
@@ -121,7 +158,8 @@ them, through the port of the checkout in each DIR in turn (for example a
 parent commit unpacked with `git archive`; give them as parent, change,
 change, parent), in both ways above and with the wrapper's host
 microseconds, each output held bit-equal to this checkout's plain
-version; `tile_order` is timed alone first.
+version (a port whose fold takes no `row_lo` gets the arguments before
+it: these frames' row_lo is 0); `tile_order` is timed alone first.
 
     python3 chip_smoke.py --raster-timing DIR [DIR ...] [--scene ...]
 
@@ -141,6 +179,7 @@ import heapq
 import importlib
 import inspect
 import json
+import math
 import os
 import shutil
 import statistics
@@ -175,6 +214,11 @@ KERNELS = (
      "paris-30k-textured 1920x1080"),
     ("fold_clip", "forma_tpu_torch/csrc/fold.cu", K3, "mix", "fold_clip",
      "styled mix 512x512"),
+    ("fold_styled", "forma_tpu_torch/csrc/fold.cu", K3, "crop", "fold_styled_crop",
+     "paris-30k-styled 1920x1080, cropped to tile rows [20, 50) x columns [10, 100) "
+     "(row_lo 20)"),
+    ("fold", "forma_tpu_torch/csrc/fold.cu", K3, "spaceship", "fold_spaceship",
+     "spaceship 1920x1080, damage-cached (unchanged tiles skipped)"),
     ("texture_probe", "forma_tpu_torch/csrc/texture_probe.cu",
      "tools/texture_fold_probe.py:157", "probe", "texture_probe", "the probe's paris shape"),
     ("fold_ablate", "forma_tpu_torch/csrc/fold_ablate.cu",
@@ -194,6 +238,8 @@ PATHS = {
     "textured": ("rasterize", "grid", "fold_tex"),
     "texmix": ("rasterize", "grid", "fold_clip"),
     "wide": ("expand", "grid", "fold"),  # the two-key route: K1, never K4
+    "crop": ("rasterize", "grid", "fold_styled"),
+    "spaceship": ("rasterize", "grid", "fold"),
 }
 PARIS_W, PARIS_H = 1920, 1080
 MIX_W, MIX_H = 512, 512
@@ -711,7 +757,7 @@ def paris_variant(device, label: str, counter: str) -> tuple:
     of PARIS_SCENES and of PATHS): K3's specialisation `counter` on the
     frame's own inputs against its plain version, then the frame through
     `Renderer.render` against the plain path on the card; returns (K3
-    numbers, launches)."""
+    numbers, launches, the composition)."""
     from forma_tpu_torch import Color, Composition, Renderer
     from forma_tpu_torch.demos import scenes
 
@@ -734,7 +780,7 @@ def paris_variant(device, label: str, counter: str) -> tuple:
     ref, _ = r.render_device(comp, PARIS_W, PARIS_H, clear, plain=True)
     ref = ref[:PARIS_H, :PARIS_W].cpu().numpy()
     launches = frame_path(label, label, r, comp, (PARIS_W, PARIS_H), ref)
-    return res, launches
+    return res, launches, comp
 
 
 def mix_vs_cpu(device, label: str, build) -> tuple:
@@ -1131,6 +1177,420 @@ def scatter_probe(device, k2_slots: int, k2_live: int, k2: dict) -> tuple:
     return {"mode": "independent", **out["independent"]}, launches
 
 
+# Phase 15's crop: tile rows [20, 50) and tile columns [10, 100) of a
+# 1920x1080 frame; bytes outside it start as SENTINEL_BYTE.
+CROP_ROWS, CROP_COLS = (20, 50), (10, 100)
+SENTINEL_BYTE = 0xA5
+SHIP_WARM, SHIP_FRAMES = 3, 60  # phase 16 (`bench.py:104-151`)
+SHIP_CLEAR = (0.02, 0.02, 0.08, 1.0)
+ANIM_FRAMES = 10  # phase 17 (`bench.py:207-271`), at 1920x1080 and at ANIM_4K
+ANIM_4K = (3840, 2160)
+ZOOM_FROM, ZOOM_BY = 0.6, 1.5  # phase 17's zoom: scale 0.6 -> 0.9
+
+
+def paris_orders(comp) -> np.ndarray:
+    return np.asarray([o.as_u32() for o in comp.layers], np.uint32)
+
+
+def timed(fn) -> float:
+    """Host milliseconds of `fn()` (which returns on the host, synced)."""
+    t = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t) * 1e3
+
+
+def spread(label: str, values) -> dict:
+    """{label_median, label_min, label_max} of a list of numbers."""
+    return {f"{label}_median": f"{statistics.median(values):.3f}",
+            f"{label}_min": f"{min(values):.3f}", f"{label}_max": f"{max(values):.3f}"}
+
+
+def count_launches(total: dict, fn):
+    """Runs `fn()` and adds the kernel launches it made to `total`."""
+    from forma_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    out = fn()
+    for k, v in _build.LAUNCHES.items():
+        total[k] = total.get(k, 0) + v
+    return out
+
+
+def crop_phase(device, comps: dict, paris) -> tuple:
+    """Phase 15: paris-30k-styled and -textured at 1920x1080 (`comps`, the
+    compositions of phases 6 and 8) cropped to tile rows CROP_ROWS and
+    tile columns CROP_COLS through `render_into(crop=)` with no cache: K3
+    `fold_styled` and `fold_tex` on the cropped frame's own inputs (row_lo
+    20) against their plain versions, the rect against the uncropped frame
+    (0 differing pixels), the bytes outside it untouched, the cropped
+    frame's ms beside the full frame's; then K3 `fold` with a tile-skip
+    mask, on a damage-cached paris-30k frame (`paris`) after 1% of its
+    layers moved, against its plain version, and that frame against a fresh
+    render.  Returns ({result key: numbers}, launches of the styled crop's
+    counted run)."""
+    from forma_tpu_torch import RGBA, Buffer, Color, LinearLayout, Rect, Renderer
+    from forma_tpu_torch.ops import pipeline as pipe
+
+    w, h = PARIS_W, PARIS_H
+    clear = Color(1.0, 1.0, 1.0, 1.0)
+    (r0, r1), (c0, c1) = CROP_ROWS, CROP_COLS
+    y0, y1, x0, x1 = 16 * r0, 16 * r1, 16 * c0, 16 * c1
+    rect = Rect.new(range(x0, x1), range(y0, y1))
+    out, launches = {}, None
+    for label, counter in (("styled", "fold_styled"), ("textured", "fold_tex")):
+        comp = comps[label]
+        r = Renderer(device)
+        full = r.render(comp, w, h, clear)
+        taps = {}
+        r.render_device(comp, w, h, clear, row_span=CROP_ROWS, crop_x=CROP_COLS, taps=taps)
+        torch.cuda.synchronize()
+        if taps["fold"][15] != r0:
+            raise AssertionError(f"crop {label}: K3 row_lo {taps['fold'][15]}, not {r0}")
+        out[f"{counter}_crop"] = check_fold(counter, taps["fold"], frame=f"{label}-crop",
+                                            row_lo=r0)
+        del taps
+        buf = np.full((h, w * 4), SENTINEL_BYTE, np.uint8)
+        buffer = Buffer(buffer=buf, layout=LinearLayout(w, w * 4, h))
+        run = {}
+        count_launches(run, lambda: r.render_into(comp, buffer, clear, crop=rect))
+        crop_ms = [timed(lambda: r.render_into(comp, buffer, clear, crop=rect))
+                   for _ in range(5)]
+        full_ms = [timed(lambda: r.render(comp, w, h, clear)) for _ in range(5)]
+        img = buf.reshape(h, w, 4)
+        diff = np.abs(img[y0:y1, x0:x1].astype(int) - full[y0:y1, x0:x1].astype(int))
+        outside = np.ones((h, w), bool)
+        outside[y0:y1, x0:x1] = False
+        untouched = bool((img[outside] == SENTINEL_BYTE).all())
+        say("crop", frame=label, rect=f"rows[{y0},{y1})xcols[{x0},{x1})", row_lo=r0,
+            max_diff_vs_full=int(diff.max()),
+            differing_pixels=int((diff > 0).any(axis=-1).sum()),
+            outside_untouched=untouched, launches=run,
+            **spread("crop_frame_ms", crop_ms), **spread("full_frame_ms", full_ms))
+        if diff.max() != 0 or not untouched:
+            raise AssertionError(f"crop {label}: the rect differs from the full frame or "
+                                 "the bytes outside it changed")
+        for name in ("rasterize", "grid", counter):
+            if run[name] < 1:
+                raise AssertionError(f"crop {label}: {name} was never launched")
+        if label == "styled":
+            launches = run
+        del r, full, buf, img
+
+    # K3 with a tile-skip mask: a cached paris-30k frame after 1% of its
+    # layers (300) moved by (3, 2) pixels.
+    r = Renderer(device)
+    cache = r.create_buffer_layer_cache()
+    backing = np.zeros((h, w * 4), np.uint8)
+    r.render_into(paris, Buffer(buffer=backing, layout=LinearLayout(w, w * 4, h),
+                                layer_cache=cache), clear)
+    orders = paris_orders(paris)
+    moved = orders[1: 1 + max(1, len(orders) // 100)]  # layer 0 is the background
+    paris.set_transforms(moved, np.tile(np.asarray([1, 0, 0, 1, 3, 2], np.float32),
+                                        (len(moved), 1)))
+    taps = {}
+    frame, d = r._render_device_cached(paris, cache, w, h, clear, RGBA, taps=taps)
+    args = taps["fold"]
+    n_tiles = args[0].shape[0]
+    fresh = Renderer(device).render(paris, w, h, clear)
+    same = bool(np.array_equal(frame[:h, :w].cpu().numpy(), fresh))
+    say("crop", frame="paris cached", moved_layers=len(moved), tiles=n_tiles,
+        damaged_tiles=int(d[pipe.DIAG_DMG]), folded_tiles=int((args[1] > 0).sum()),
+        diag=d.tolist(), cached_equals_fresh=same)
+    out["fold_skip"] = check_fold("fold", args, frame="paris-cached")
+    if not same or not 0 < int(d[pipe.DIAG_DMG]) < n_tiles:
+        raise AssertionError("paris cached: the frame differs from a fresh render, or the "
+                             "damage is not partial")
+    return out, launches
+
+
+def spaceship_phase(device) -> tuple:
+    """Phase 16: the spaceship at 1920x1080 (`bench.py:104-151`) through the
+    damage cache: SHIP_WARM warm-up frames, then SHIP_FRAMES synchronous
+    `render_into` frames, each byte-equal to a fresh uncached render of the
+    same state; an unchanged scene (no dispatch, no launch, nothing
+    written); the same steps from a fresh ship with `pipelined=True` and
+    `flush_pending()`, each buffer byte-equal to the synchronous buffer of
+    one frame earlier; then K3 `fold` on a cached frame's own inputs
+    against its plain version.  Returns (K3 numbers, launches of the
+    synchronous run's render_into calls, results)."""
+    import hashlib
+
+    from forma_tpu_torch import RGBA, Buffer, Color, Composition, LinearLayout, Renderer
+    from forma_tpu_torch.demos.spaceship import Spaceship
+    from forma_tpu_torch.ops import pipeline as pipe
+
+    w, h = PARIS_W, PARIS_H
+    clear = Color(*SHIP_CLEAR)
+
+    def setup():
+        comp = Composition()
+        ship = Spaceship(width=w, height=h)
+        ship.build(comp)
+        r = Renderer(device)
+        backing = np.zeros((h, w * 4), np.uint8)
+        buf = Buffer(buffer=backing, layout=LinearLayout(w, w * 4, h),
+                     layer_cache=r.create_buffer_layer_cache())
+        for _ in range(SHIP_WARM):
+            ship.step()
+            r.render_into(comp, buf, clear)
+        return comp, ship, r, backing, buf
+
+    def digest(a) -> str:
+        return hashlib.blake2b(a.tobytes(), digest_size=16).hexdigest()
+
+    comp, ship, r, backing, buf = setup()
+    fresh = Renderer(device)
+    warm_regrows = r.regrow_count
+    launches, sync_ms, dmg, nbytes, k_cached, k_fresh, digests, bad = {}, [], [], [], [], [], [], []
+    for i in range(SHIP_FRAMES):
+        ship.step()
+        b0 = r.readback_bytes
+        sync_ms.append(timed(lambda: count_launches(launches,
+                                                    lambda: r.render_into(comp, buf, clear))))
+        nbytes.append(r.readback_bytes - b0)
+        dmg.append(int(r.last_diag[pipe.DIAG_DMG]))
+        k_cached.append(int(r.last_diag[pipe.DIAG_K]))
+        want = fresh.render(comp, w, h, clear)
+        k_fresh.append(int(fresh.last_diag[pipe.DIAG_K]))
+        if not np.array_equal(backing.reshape(h, w, 4), want):
+            bad.append(i)
+        digests.append(digest(backing))
+    regrows = r.regrow_count - warm_regrows
+    profile = frame_profile(lambda: (ship.step(), r.render_into(comp, buf, clear)), 10)
+
+    # An unchanged scene: no dispatch, nothing written.
+    noop = {}
+    b0, before = r.readback_bytes, digest(backing)
+    count_launches(noop, lambda: r.render_into(comp, buf, clear))
+    noop_ok = (not any(noop.values()) and int(r.last_diag[pipe.DIAG_DMG]) == 0
+               and r.readback_bytes == b0 and digest(backing) == before)
+
+    # K3 on a cached frame's own inputs (its unchanged tiles skipped).
+    ship.step()
+    taps = {}
+    r._render_device_cached(comp, buf.layer_cache, w, h, clear, RGBA, taps=taps)
+    k3 = check_fold("fold", taps["fold"], frame="spaceship-cached")
+    del taps, fresh
+
+    comp, ship, rp, pbacking, pbuf = setup()
+    piped_ms, piped_bad = [], []
+    for i in range(SHIP_FRAMES):
+        ship.step()
+        piped_ms.append(timed(lambda: rp.render_into(comp, pbuf, clear, pipelined=True)))
+        if i and digest(pbacking) != digests[i - 1]:
+            piped_bad.append(i)
+    flush_ms = timed(rp.flush_pending)
+    if digest(pbacking) != digests[-1]:
+        piped_bad.append(SHIP_FRAMES)
+    res = {"sync_ms": statistics.median(sync_ms), "pipelined_ms": statistics.median(piped_ms),
+           "damaged_tiles": statistics.median(dmg), "readback_bytes": statistics.median(nbytes)}
+    say("spaceship", size=f"{w}x{h}", layers=len(comp.layers), frames=SHIP_FRAMES,
+        warm_frames=SHIP_WARM, **spread("sync_ms", sync_ms), **spread("pipelined_ms", piped_ms),
+        flush_ms=f"{flush_ms:.3f}",
+        pipelined_ms_per_frame_with_flush=f"{(sum(piped_ms) + flush_ms) / SHIP_FRAMES:.3f}",
+        damaged_tiles_median=statistics.median(dmg), damaged_tiles_max=max(dmg),
+        tiles=(w // 16) * -(-h // 16), readback_bytes_median=statistics.median(nbytes),
+        readback_bytes_max=max(nbytes), full_frame_bytes=w * h * 4,
+        regrow_count=r.regrow_count, regrows_after_warmup=regrows,
+        k_cached_median=statistics.median(k_cached), k_cached_max=max(k_cached),
+        k_uncached_median=statistics.median(k_fresh), k_uncached_max=max(k_fresh),
+        frames_differing_from_fresh=len(bad), pipelined_frames_differing=len(piped_bad),
+        unchanged_scene_launches=sum(noop.values()), unchanged_scene_ok=noop_ok,
+        launches=launches)
+    say("spaceship", question="where a cached frame's time goes", **profile)
+    if bad or piped_bad or not noop_ok:
+        raise AssertionError(f"spaceship: frames {bad} differ from fresh renders, pipelined "
+                             f"frames {piped_bad} from the synchronous stream, or the "
+                             f"unchanged scene dispatched ({noop}, ok {noop_ok})")
+    for name in ("rasterize", "grid", "fold"):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"spaceship: {name} was never launched")
+    return k3, launches, res
+
+
+def frame_profile(step, frames: int) -> dict:
+    """`torch.profiler` over `frames` calls of `step()`: wall ms a frame
+    (fenced once at the end), device ms a frame (the kernels' self time),
+    the device's busy share, kernel launches and PyTorch ops a frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(frames):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / frames
+    ka = prof.key_averages()
+    device = sum(e.self_device_time_total for e in ka) / 1e3 / frames
+    return {"wall_ms_per_frame": f"{wall:.3f}", "device_ms_per_frame": f"{device:.3f}",
+            "device_busy_share": f"{device / wall:.3f}",
+            "kernel_launches_per_frame": sum(e.count for e in ka
+                                             if e.key == "cudaLaunchKernel") / frames,
+            "aten_ops_per_frame": sum(e.count for e in ka
+                                      if e.key.startswith("aten::")) / frames}
+
+
+def rotation(n: int, i: int) -> np.ndarray:
+    """`bench.py:207-220`'s frame transform i for n layers: a rotation by
+    0.0005 (i + 1) rad, scaled by 0.999."""
+    a = 0.0005 * (i + 1)
+    row = np.asarray([math.cos(a) * 0.999, math.sin(a) * 0.999, -math.sin(a) * 0.999,
+                      math.cos(a) * 0.999, 0.0, 0.0], np.float32)
+    return np.tile(row, (n, 1))
+
+
+def zoom(n: int, s: float, w: int, h: int) -> np.ndarray:
+    """A zoom by s about the frame's centre for n layers."""
+    row = np.asarray([s, 0.0, 0.0, s, w / 2 * (1 - s), h / 2 * (1 - s)], np.float32)
+    return np.tile(row, (n, 1))
+
+
+def syncs_during(fn) -> dict:
+    """Runs `fn()` under `torch.cuda.set_sync_debug_mode("warn")`; returns
+    {call site: count} of the synchronising calls it made, each site the
+    innermost three Python frames ("file:line < caller < caller")."""
+    import traceback
+    import warnings
+
+    found = {}
+    armed = []  # set once the mode is on: enabling it may sync once itself
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if not armed or "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if not f.filename.endswith(os.path.join("", "warnings.py"))]
+        site = " < ".join(f"{os.path.relpath(f.filename, REPO)}:{f.lineno}"
+                          for f in reversed(frames[-3:]))
+        found[site] = found.get(site, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        armed.append(True)
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return found
+
+
+def animation_phase(device, paris) -> dict:
+    """Phase 17: paris-30k at 1920x1080 (`paris`) and at 3840x2160, animated
+    as `bench.py`'s animated configs: warm-up as `bench.py:222-235`, then
+    ANIM_FRAMES frames with `render_device(check_caps=False)` under the
+    sync debug mode (no synchronising call allowed), fenced once at the
+    end, their diagnostics checked after the loop (no bucket overflowed);
+    the same frames with `check_caps=True` (no regrow); at 3840x2160 the
+    packed key (slot_bits > 0) and one frame against the plain path on the
+    card; then a fresh renderer zooms by ZOOM_BY over ANIM_FRAMES frames
+    after `announce_max_scale(ZOOM_BY)` with no regrow after its two
+    warm-up frames.  Returns {size: results}."""
+    from forma_tpu_torch import Color, Composition, Renderer
+    from forma_tpu_torch.demos import scenes
+    from forma_tpu_torch.ops import pipeline as pipe
+
+    clear = Color(1.0, 1.0, 1.0, 1.0)
+    out = {}
+    for w, h in ((PARIS_W, PARIS_H), ANIM_4K):
+        size = f"{w}x{h}"
+        if w == PARIS_W:
+            comp = paris
+        else:
+            t = time.perf_counter()
+            comp = Composition()
+            scenes.paris30k(comp, w, h)
+            say("anim", size=size, scene_build_s=f"{time.perf_counter() - t:.1f}")
+        orders = paris_orders(comp)
+        n = len(orders)
+        r = Renderer(device)
+        t = time.perf_counter()
+        r.render_device(comp, w, h, clear)
+        comp.set_transforms(orders, rotation(n, ANIM_FRAMES - 1))
+        r.render_device(comp, w, h, clear)
+        comp.set_transforms(orders, rotation(n, 0))
+        r.render_device(comp, w, h, clear)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t
+        warm = r.regrow_count
+        caps = r._caps
+        diags = []
+
+        def loop():
+            for i in range(ANIM_FRAMES):
+                comp.set_transforms(orders, rotation(n, i))
+                diags.append(r.render_device(comp, w, h, clear, check_caps=False)[1])
+
+        t = time.perf_counter()
+        syncs = syncs_during(loop)
+        torch.cuda.synchronize()
+        unchecked_ms = (time.perf_counter() - t) * 1e3 / ANIM_FRAMES
+        d = torch.stack(diags).cpu().numpy()
+        overflow = [i for i, di in enumerate(d) if not r._fits(di, caps)]
+        t = time.perf_counter()
+        for i in range(ANIM_FRAMES):
+            comp.set_transforms(orders, rotation(n, i))
+            frame, _ = r.render_device(comp, w, h, clear)
+        torch.cuda.synchronize()
+        checked_ms = (time.perf_counter() - t) * 1e3 / ANIM_FRAMES
+        regrows = r.regrow_count - warm
+        n_slots = r._styles_cache[0].orders.shape[0]
+        rows, tiles_x = -(-h // 16), -(-w // 16)
+        slot_bits = pipe.slot_bits_for(n_slots, rows, tiles_x)
+        res = {"check_caps_false_ms": unchecked_ms, "check_caps_true_ms": checked_ms,
+               "regrows": regrows, "syncs": syncs, "slot_bits": slot_bits}
+        extra = {}
+        if w != PARIS_W:
+            img = frame[:h, :w].cpu().numpy()
+            ref, _ = r.render_device(comp, w, h, clear, plain=True)
+            diff = np.abs(img.astype(int) - ref[:h, :w].cpu().numpy().astype(int))
+            extra = {"max_diff_vs_plain": int(diff.max()),
+                     "differing_pixels_vs_plain": int((diff > 0).any(axis=-1).sum())}
+            res.update(extra)
+        say("anim", size=size, layers=n, frames=ANIM_FRAMES, warmup_s=f"{warm_s:.2f}",
+            caps=tuple(caps), check_caps_false_ms_per_frame=f"{unchecked_ms:.3f}",
+            check_caps_true_ms_per_frame=f"{checked_ms:.3f}",
+            syncs_in_check_caps_false_loop=sum(syncs.values()), sync_sites=syncs,
+            overflowed_frames=overflow, regrows_after_warmup=regrows,
+            diag_last=d[-1].tolist(), slot_bits=slot_bits,
+            key_bits=(rows + 1).bit_length() + max((tiles_x + 1).bit_length(), 1)
+            + max((n_slots - 1).bit_length(), 1), **extra)
+        if syncs or overflow or regrows:
+            raise AssertionError(f"anim {size}: synchronising calls {syncs}, overflowed "
+                                 f"frames {overflow} or {regrows} regrows after warm-up")
+        if w != PARIS_W and (slot_bits == 0 or extra["max_diff_vs_plain"] > 1):
+            raise AssertionError(f"anim {size}: slot_bits {slot_bits} or max diff vs plain "
+                                 f"{extra['max_diff_vs_plain']} > 1")
+
+        # The zoom: ZOOM_FROM -> ZOOM_FROM * ZOOM_BY after announce_max_scale.
+        rz = Renderer(device)
+        rz.announce_max_scale(ZOOM_BY)
+        comp.set_transforms(orders, zoom(n, ZOOM_FROM, w, h))
+        rz.render_device(comp, w, h, clear)
+        # A half-pixel move flips the renderer to animating.
+        comp.set_transforms(orders, zoom(n, ZOOM_FROM, w, h)
+                            + np.asarray([0, 0, 0, 0, 0.5, 0.5], np.float32))
+        rz.render_device(comp, w, h, clear)
+        warm = rz.regrow_count
+        zoom_ms = []
+        for i in range(ANIM_FRAMES):
+            s = ZOOM_FROM * (1 + (ZOOM_BY - 1) * i / (ANIM_FRAMES - 1))
+            comp.set_transforms(orders, zoom(n, s, w, h))
+            zoom_ms.append(timed(lambda: rz.render_device(comp, w, h, clear)))
+        res["zoom_regrows"] = rz.regrow_count - warm
+        say("anim", size=size, zoom=f"{ZOOM_FROM}->{ZOOM_FROM * ZOOM_BY:.2f}",
+            announced=ZOOM_BY, frames=ANIM_FRAMES, warm_regrows=warm,
+            regrows_after_warmup=res["zoom_regrows"], caps=tuple(rz._caps),
+            diag_last=rz.last_diag.tolist(), **spread("frame_ms", zoom_ms))
+        if res["zoom_regrows"]:
+            raise AssertionError(f"anim {size}: the announced zoom regrew "
+                                 f"{res['zoom_regrows']} times")
+        out[size] = res
+        del r, rz, comp
+    return out
+
+
 def u32_values(packed, payload) -> tuple:
     """K4's output as int64 u32 values, whichever layout a port stores:
     int32 words (the key sentinel 0x7FFFFFFF mapped to 0xFFFFFFFF, the
@@ -1389,8 +1849,10 @@ def fold_timing(roots, scene: str) -> int:
         fold = ports[root].paint_fold
         # A port from before the fold took src_u reads the grid row at
         # src2_u: the same row on these table-mode inputs (src_u is src2_u).
-        fargs = args if "src_u" in inspect.signature(fold).parameters else (
-            args[:2] + args[3:])
+        params = inspect.signature(fold).parameters
+        # A port from before the fold took row_lo: these frames' row_lo is 0.
+        fargs = args if "row_lo" in params else args[:15]
+        fargs = fargs if "src_u" in params else fargs[:2] + fargs[3:]
         fn = lambda: fold(*fargs)  # noqa: E731
         got = fn()
         torch.cuda.synchronize()
@@ -1482,15 +1944,18 @@ def main() -> int:
         path: frame_path("paris", path, rr, paris, (PARIS_W, PARIS_H), ref)
         for path, rr in renderers.items()
     }
-    del renderers, paris, ref
+    del renderers, ref
 
     # 6. paris-30k-styled; 7. the styled mix
-    kres["fold_styled"], launches["styled"] = paris_variant(device, "styled", "fold_styled")
+    comps = {}
+    kres["fold_styled"], launches["styled"], comps["styled"] = paris_variant(
+        device, "styled", "fold_styled")
     kres["fold_clip"], launches["mix"] = mix_vs_cpu(
         device, "mix", lambda comp: scenes.styled_mix(comp, 400, MIX_W, MIX_H))
 
     # 8. paris-30k-textured; 9. the textured mix
-    kres["fold_tex"], launches["textured"] = paris_variant(device, "textured", "fold_tex")
+    kres["fold_tex"], launches["textured"], comps["textured"] = paris_variant(
+        device, "textured", "fold_tex")
     _, launches["texmix"] = mix_vs_cpu(
         device, "texmix", lambda comp: scenes.textured_mix(comp, 300, MIX_W, MIX_H))
 
@@ -1514,6 +1979,21 @@ def main() -> int:
     kres.update(micro)
     kres["grid_scatter"], launches["scatter"] = scatter_probe(
         device, k2_slots, k2_live, kres["grid"])
+
+    # 15. crop; 16. the spaceship through the damage cache; 17. animation
+    crop, launches["crop"] = crop_phase(device, comps, paris)
+    kres.update(crop)
+    del comps
+    kres["fold_spaceship"], launches["spaceship"], ship = spaceship_phase(device)
+    anim = animation_phase(device, paris)
+    del paris
+    say("incremental", question="what the incremental paths cost on the card", card=repr(card),
+        spaceship_sync_ms=f"{ship['sync_ms']:.3f}",
+        spaceship_pipelined_ms=f"{ship['pipelined_ms']:.3f}",
+        spaceship_damaged_tiles=ship["damaged_tiles"],
+        spaceship_readback_bytes=ship["readback_bytes"],
+        **{f"anim_{size}_{k}": (f"{v:.3f}" if isinstance(v, float) else v)
+           for size, res in anim.items() for k, v in res.items() if k != "syncs"})
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

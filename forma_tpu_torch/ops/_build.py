@@ -51,7 +51,7 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "forma_expand": [_P, _P, _I64, _I64, _P, _P, _P],
     "forma_grid": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
-    "forma_fold": [_P] * 13 + [_I64] * 4 + [_P, _P, _I64, _I64, _P],
+    "forma_fold": [_P] * 13 + [_I64] * 4 + [_P, _P, _I64, _I64, _I64, _P],
     "forma_rasterize": [_P] * 3 + [_I64] * 8 + [_P, _P, _P],
     "forma_texture_probe": [_P, _P] + [_I64] * 5 + [_P, _P],
     "forma_fold_ablate": [_P] * 3 + [_I64] * 4 + [_P, _P],

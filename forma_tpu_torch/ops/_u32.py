@@ -21,11 +21,17 @@ MASK32 = 0xFFFFFFFF
 
 
 def from_numpy(a: np.ndarray, device) -> torch.Tensor:
-    """numpy array -> tensor on `device`; uint32 widens to int64."""
+    """numpy array -> a copy on `device`; uint32 widens to int64.  To a
+    CUDA device the copy goes through pinned memory without a host sync
+    (PyTorch keeps the pinned block until the copy has run)."""
     a = np.asarray(a)
     if a.dtype == np.uint32:
         a = a.astype(np.int64)
-    return torch.tensor(a, device=device)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return torch.tensor(a, device=device)
+    host = torch.from_numpy(np.array(a, order="C")).pin_memory()
+    return host.to(device, non_blocking=True)
 
 
 def f32_bits(x: torch.Tensor) -> torch.Tensor:

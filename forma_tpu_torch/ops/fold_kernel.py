@@ -143,11 +143,14 @@ def _launch_layout(features, ms: int):
         *lay[1:10], lay.width, ms, lay.tex)
 
 
-def tile_spans(key_u, u_valid, rows: int, tiles_x: int, k_slots: int):
+def tile_spans(key_u, u_valid, rows: int, tiles_x: int, k_slots: int, skip=None):
     """Per-tile unit spans of the (tile, layer)-sorted units: (ust i32 [T]
     first unit, cnt i32 [T] unit count clamped to k_slots).  Unit tiles
     are nondecreasing (invalid units sort last), so each span is a pair of
-    binary searches."""
+    binary searches.  `skip` (bool [T], optional) marks tiles that fold no
+    units, those the damage cache or a crop leaves out: their count is 0,
+    and the fold leaves them at the clear colour
+    (`forma_tpu/ops/paint.py:221-228`)."""
     n_tiles = rows * tiles_x
     rowb = (key_u >> TX_BITS) - 1
     txu = (key_u & ((1 << TX_BITS) - 1)) - 1
@@ -156,6 +159,8 @@ def tile_spans(key_u, u_valid, rows: int, tiles_x: int, k_slots: int):
     ust = torch.searchsorted(tile_of, t)
     end = torch.searchsorted(tile_of, t, right=True)
     cnt = torch.clamp(end - ust, max=k_slots)
+    if skip is not None:
+        cnt = torch.where(skip, 0, cnt)
     return ust.to(torch.int32), cnt.to(torch.int32)
 
 
@@ -170,10 +175,13 @@ def tile_order(cnt):
 
 
 def paint_fold(ust, cnt, src_u, src2_u, virt_u, grid, carry_in_s, carry_after_s,
-               tx_s, style_s, clear, tiles_x: int, features, ms: int, atlas=None):
+               tx_s, style_s, clear, tiles_x: int, features, ms: int, atlas=None,
+               row_lo: int = 0):
     """Folds every tile's units; returns linear f32 [T, 4 * 256]
     (channel-major blocks of 256 pixels, pixel j = (y = j // 16, x = j % 16),
-    at global pixel (16 * (t % tiles_x) + x, 16 * (t // tiles_x) + y)).
+    at global pixel (16 * (t % tiles_x) + x, 16 * (t // tiles_x + row_lo)
+    + y): `row_lo` is the global tile row of the frame's first tile row, a
+    row-span crop's first row; gradients and textures evaluate there).
 
     ust, cnt i32 [T]; src_u i32 [U] unit -> its grid row (run order);
     src2_u i32 [U] unit -> run in carry-chain order (the same tensor as
@@ -191,7 +199,7 @@ def paint_fold(ust, cnt, src_u, src2_u, virt_u, grid, carry_in_s, carry_after_s,
     if not grid.is_cuda:
         return paint_fold_torch(ust, cnt, src_u, src2_u, virt_u, grid, carry_in_s,
                                 carry_after_s, tx_s, style_s, clear, tiles_x,
-                                features, ms, atlas)
+                                features, ms, atlas, row_lo)
     counter, lay, layout = _launch_layout(features, ms)
     T = ust.shape[0]
     R = grid.shape[0]
@@ -230,14 +238,14 @@ def paint_fold(ust, cnt, src_u, src2_u, virt_u, grid, carry_in_s, carry_after_s,
             carry_in_s.data_ptr(), carry_after_s.data_ptr(), tx_s.data_ptr(),
             style_s.data_ptr(), clear.data_ptr(), layout, T, tiles_x, R, U,
             out.data_ptr(), atlas.data_ptr() if features.has_texture else None,
-            ah, aw,
+            ah, aw, row_lo,
         )
     return out
 
 
 def paint_fold_torch(ust, cnt, src_u, src2_u, virt_u, grid, carry_in_s,
                      carry_after_s, tx_s, style_s, clear, tiles_x: int, features,
-                     ms: int, atlas=None):
+                     ms: int, atlas=None, row_lo: int = 0):
     """Plain PyTorch version of `paint_fold`: a loop over k that advances
     every tile by one unit, with the Pallas kernel's expression trees
     (`paint_pallas.py:327-415`) and the wave fold's texture select
@@ -260,7 +268,7 @@ def paint_fold_torch(ust, cnt, src_u, src2_u, virt_u, grid, carry_in_s,
     if has_grad or has_tex:
         j = torch.arange(256, device=dev)
         xg = (ttx[:, None] * TW + j % TW).to(f32)
-        yg = ((tile // tiles_x)[:, None] * TH + j // TW).to(f32)
+        yg = ((tile // tiles_x + row_lo)[:, None] * TH + j // TW).to(f32)
     if has_clip:
         clipm = torch.zeros((T, 256), dtype=f32, device=dev)
         clip_last = torch.full((T, 1), -1, dtype=torch.int32, device=dev)
@@ -345,13 +353,16 @@ def paint_fold_torch(ust, cnt, src_u, src2_u, virt_u, grid, carry_in_s,
 def fold_tiles(key_u, u_valid, src_u, src2_u, virt_u, grid, carry_in_s,
                carry_after_s, tx_s, style_s, clear, rows: int, tiles_x: int,
                k_slots: int, features, ms: int, atlas=None, plain: bool = False,
-               taps=None):
+               taps=None, row_lo: int = 0, tile_skip=None):
     """Prep + fold; returns the frame's tiles as linear f32 [T, TH, TW, 4]
     (the counterpart of `paint._paint_fold_pallas`, in table mode when
     `src_u is src2_u`, in assembly mode otherwise).  `atlas` is read by
-    texture frames only.  `plain` runs K3's plain PyTorch version on any
-    device; `taps` (a dict) receives K3's inputs under "fold"."""
-    ust, cnt = tile_spans(key_u, u_valid, rows, tiles_x, k_slots)
+    texture frames only.  `row_lo` is the global tile row of tile row 0;
+    `tile_skip` (bool [T]) marks the tiles that fold nothing and stay at
+    the clear colour (the damage cache's unchanged tiles, a crop's
+    outside).  `plain` runs K3's plain PyTorch version on any device;
+    `taps` (a dict) receives K3's inputs under "fold", `row_lo` last."""
+    ust, cnt = tile_spans(key_u, u_valid, rows, tiles_x, k_slots, tile_skip)
     src2 = src2_u.to(torch.int32).contiguous()
     src = src2 if src_u is src2_u else src_u.to(torch.int32).contiguous()
     args = (
@@ -359,7 +370,7 @@ def fold_tiles(key_u, u_valid, src_u, src2_u, virt_u, grid, carry_in_s,
         virt_u.to(torch.int32).contiguous() if features.has_clip else None,
         grid.contiguous(), carry_in_s.contiguous(), carry_after_s.contiguous(),
         tx_s.contiguous(), style_s.contiguous(), clear.contiguous(), tiles_x,
-        features, ms, atlas.contiguous() if features.has_texture else None,
+        features, ms, atlas.contiguous() if features.has_texture else None, row_lo,
     )
     if taps is not None:
         taps["fold"] = args

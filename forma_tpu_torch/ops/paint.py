@@ -283,7 +283,7 @@ def cull_units_keep(key_u, virt_u, k_u, u_valid):
     keeps every unit at or above the topmost full-cover opaque unit of its
     tile; tiles containing a clip unit keep everything."""
     new_tile = key_u != _roll1(key_u)
-    new_tile[0] = True
+    new_tile[:1].fill_(True)
     full_opaque = ((virt_u & FLAG_FULL_OPAQUE) != 0) & u_valid
     is_clip = ((virt_u & FLAG_CLIP) != 0) & u_valid
 
@@ -293,7 +293,7 @@ def cull_units_keep(key_u, virt_u, k_u, u_valid):
     # Reverse-segmented cummax of (full_opaque ? k+1 : 0): for each unit,
     # the highest full-opaque slot at or after it within its tile.
     tail_new = torch.roll(new_tile, -1, 0)
-    tail_new[-1] = True  # last of each group
+    tail_new[-1:].fill_(True)  # last of each group
     gid_r = torch.cumsum(rev(tail_new), 0)
     fo_k1 = torch.where(full_opaque, k_u.long() + 1, 0)
     k_top1 = rev(_seg_cummax(gid_r, rev(fo_k1)))
@@ -322,7 +322,7 @@ def skip_trivial_clips_keep(key_u, virt_u, u_valid, id_u, cend_u, clipped_u):
     full_clip = is_clip & ((virt_u & FLAG_FULL_CLIP) != 0)
 
     new_tile = key_u != _roll1(key_u)
-    new_tile[0] = True
+    new_tile[:1].fill_(True)
     gid = torch.cumsum(new_tile, 0)
 
     # One forward fill of the last clip's position; gathers by it replace
@@ -375,12 +375,16 @@ def paint(
     atlas=None,  # f32 [AH, AW, 4] linear texture atlas (texture frames)
     plain: bool = False,
     taps=None,
+    row_lo: int = 0,  # global tile row of tile row 0 (a row-span crop)
+    tile_skip=None,  # bool [T]: tiles to skip (damage cache / crop)
 ):
-    """Returns the painted frame as linear f32 [rows*16, tiles_x*16, 4]."""
+    """Returns the painted frame as linear f32 [rows*16, tiles_x*16, 4];
+    skipped tiles stay at the clear colour, and the caller re-emits their
+    previous pixels."""
     frame_t = fold_tiles(
         key_u, u_valid, src_u, src2_u, virt_u, grid, carry_in_s, carry_after_s,
         tx_s, style_s, clear, rows, tiles_x, k_slots, features, ms, atlas,
-        plain=plain, taps=taps,
+        plain=plain, taps=taps, row_lo=row_lo, tile_skip=tile_skip,
     )
     frame = frame_t.reshape(rows, tiles_x, TH, TW, 4)
     return frame.permute(0, 2, 1, 3, 4).reshape(rows * TH, tiles_x * TW, 4)

@@ -1,20 +1,23 @@
 """The single-device frame pipeline.
 
-Counterpart of `forma_tpu/ops/pipeline.py:34-342,569-587`: `render_frame`
+Counterpart of `forma_tpu/ops/pipeline.py:34-382,569-587`: `render_frame`
 runs every stage (line setup, virtual-line expansion, rasterize, sort,
 runs, carries, units, occlusion culling, paint, sRGB) with static
 capacity buckets, and returns the packed frame with a small diagnostics
 vector (actual totals vs capacities); the renderer reads both once and
-re-renders with bigger buckets on overflow.
+re-renders with bigger buckets on overflow.  `render_frame_cached` is the
+damage-cached frame: unchanged tiles re-emit the previous frame's pixels
+and the changed tiles come back compacted for a small readback.
 
-Ported: uncached, uncropped frames for solid, gradient and texture
-fills, the 16 blend modes and clips, on both sort keys: the packed
-single key (`slot_bits > 0`) and, where [row | slot | tx] passes 31 bits,
-the two-key route (`slot_bits == 0`: K1 and the emit in PyTorch, the
-int64 two-key sort, the runs re-sorted into carry-chain order, and K3
-reading each unit's grid row by `src_u`), as the JAX package routes them
-(`forma_tpu/ops/pipeline.py:98-110,123,147`).  The damage cache and crop
-are not ported.
+Every frame takes either sort key: the packed single key (`slot_bits >
+0`) and, where [row | slot | tx] passes 31 bits, the two-key route
+(`slot_bits == 0`: K1 and the emit in PyTorch, the int64 two-key sort,
+the runs re-sorted into carry-chain order, and K3 reading each unit's
+grid row by `src_u`), as the JAX package routes them
+(`forma_tpu/ops/pipeline.py:98-110,123,147`).  A row-span crop renders
+tile rows [row_lo, row_lo + rows): the rasterizer shifts them to the
+frame's rows, and K3 evaluates fills at the global rows.  Nothing here
+reads a device value on the host.
 """
 
 from __future__ import annotations
@@ -44,8 +47,22 @@ class Caps(NamedTuple):
     k: int = 4
 
 
-# Indices into the diagnostics vector (DIAG_DMG reads 0: no damage cache).
+# Indices into the diagnostics vector.  DIAG_DMG (the number of changed
+# tiles) is meaningful only for cached frames; it reads 0 elsewhere.
 DIAG_VLINES, DIAG_RUNS, DIAG_VIRT, DIAG_K, DIAG_SEGS, DIAG_DMG = range(6)
+
+# Static capacity of the compact damaged-tile readback (bytes per cached
+# frame at most DMG_CAP * TILE_HEIGHT * TILE_WIDTH * C).  Not a growth
+# bucket: a frame with more damage falls back to a whole-frame readback.
+DMG_CAP = 1024
+
+
+def _unit_tiles(key_u, u_valid, tiles_x: int, n_tiles: int):
+    """Each unit's tile index (frame rows), n_tiles for invalid units: the
+    key arithmetic of `fold_kernel.tile_spans`."""
+    rowb = (key_u >> _raster.TX_BITS) - 1
+    txu = (key_u & ((1 << _raster.TX_BITS) - 1)) - 1
+    return torch.where(u_valid, rowb * tiles_x + txu, n_tiles)
 
 
 def slot_bits_for(n_slots: int, rows: int, tiles_x: int) -> int:
@@ -63,6 +80,7 @@ def _core(
     px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
     width: int, height: int, rows: int, tiles_x: int,
     caps: Caps, features: Features, channels,
+    row_lo: int = 0, cache=None, crop_x=None, crop_y=None,
     expand: str = "fused", plain: bool = False, taps=None,
 ):
     params, slots, lengths, vline_ends = _ls.line_setup(
@@ -76,12 +94,13 @@ def _core(
     key_hi, key_lo, payload = _raster.rasterize_sort(
         params, slots, lengths, vline_ends,
         torch.clamp(v_total, max=caps.vline),
-        caps.vline, K_SEG, rows, tiles_x, 0,
+        caps.vline, K_SEG, rows, tiles_x, row_lo,
         slot_bits=slot_bits, expand=expand, plain=plain, taps=taps,
     )
     return _back(
         key_hi, key_lo, payload, v_total, total_segs,
         st, clear, rows, tiles_x, caps, features, channels,
+        row_lo=row_lo, cache=cache, crop_x=crop_x, crop_y=crop_y,
         presorted=slot_bits > 0, plain=plain, taps=taps,
     )
 
@@ -91,12 +110,18 @@ def _back(
     v_total, total_segs,  # diagnostics scalars from the front half
     st, clear, rows: int, tiles_x: int,
     caps: Caps, features: Features, channels,
+    row_lo: int = 0,  # global tile row of the frame's tile row 0
+    cache=None,  # (prev_frame u8, prev_counts i32 [T], st_unchanged bool [SL], cache_ok)
+    crop_x=None,  # (tile_x_lo, tile_x_hi): tiles outside paint nothing
+    crop_y=None,  # (tile_row_lo, tile_row_hi): rows outside paint nothing
     presorted: bool = False,  # sorted by the packed key: runs arrive in
     #                           carry-chain order, and src_u == src2_u
     plain: bool = False, taps=None,
 ):
     """Everything after the segment sort: runs, carries, units, the
-    occlusion pass, paint, sRGB."""
+    occlusion pass, paint, sRGB; with `cache`, the tile-unchanged test,
+    the re-emit of the previous frame and the damaged-tile compaction
+    (`forma_tpu/ops/pipeline.py:113-316`)."""
     run_id, num_runs, new_run = _runs.extract_runs(key_hi, key_lo)
 
     st_opaque = (
@@ -133,6 +158,27 @@ def _back(
         )
     )
 
+    n_tiles = rows * tiles_x
+    dev = key_u.device
+    counts = tile_unch = None
+    if cache is not None:
+        # tile_unchanged (`passes/tile_unchanged.rs:24-57`): a tile whose
+        # unit count matches the cached count and whose every layer is
+        # unchanged re-emits the previous frame's pixels.  Counts are
+        # taken before the cull, so they do not depend on its decisions.
+        prev_frame, prev_counts, st_unchanged, cache_ok = cache
+        tile_of = _unit_tiles(key_u, u_valid, tiles_x, n_tiles)
+        counts = torch.zeros(n_tiles + 1, dtype=torch.int32, device=dev)
+        counts.index_add_(0, tile_of, torch.ones_like(tile_of, dtype=torch.int32))
+        counts = counts[:n_tiles]
+        slot_u = torch.clamp(layer_u.long(), max=st["orders"].shape[0] - 1)
+        unch_u = torch.where(u_valid, st_unchanged[slot_u].to(torch.int32), 1)
+        all_unch = torch.ones(n_tiles + 1, dtype=torch.int32, device=dev)
+        all_unch.scatter_reduce_(0, tile_of, unch_u, reduce="amin")
+        tile_unch = (counts == prev_counts) & (all_unch[:n_tiles] == 1)
+        if not cache_ok:
+            tile_unch = torch.zeros_like(tile_unch)
+
     # Layer-workbench passes fused into one keep mask + ONE unit re-sort;
     # the occlusion analysis may run on the pre-clip-pass list
     # (`forma_tpu/ops/paint.py:644-650`).
@@ -152,6 +198,30 @@ def _back(
         _paint._renumber_units(key_u, layer_u, src_u, src2_u, virt_u, keep)
     )
 
+    tile_skip = tile_unch
+    out_of_crop = None
+    if crop_x is not None or crop_y is not None:
+        # Tiles outside the crop never paint (`cpu/renderer.rs:38-53`);
+        # covers still carry, since carries come from the run chains.
+        t = torch.arange(n_tiles, device=dev)
+        out_of_crop = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
+        if crop_x is not None:
+            tx_t = t % tiles_x
+            out_of_crop |= (tx_t < crop_x[0]) | (tx_t >= crop_x[1])
+        if crop_y is not None:
+            row_t = t // tiles_x
+            out_of_crop |= (row_t < crop_y[0]) | (row_t >= crop_y[1])
+        tile_skip = out_of_crop if tile_skip is None else tile_skip | out_of_crop
+
+    if tile_skip is not None:
+        # The fold depth the painted tiles need.
+        kmax_t = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
+        kmax_t.scatter_reduce_(
+            0, _unit_tiles(key_u, u_valid, tiles_x, n_tiles), k_u.long() + 1,
+            reduce="amax",
+        )
+        k_needed = torch.where(tile_skip, 0, kmax_t[:n_tiles]).max()
+
     # Presorted, src_u == src2_u: passing src2_u for both keeps the fold
     # in table mode, one index load per unit.
     frame = _paint.paint(
@@ -159,9 +229,39 @@ def _back(
         rd["grid"], rd["carry_in_s"],
         rd["carry_after_s"], rd["style_s"], rd["tx_s"], clear,
         rows, tiles_x, caps.k, features, st["stops"].shape[1], st["atlas"],
-        plain=plain, taps=taps,
+        plain=plain, taps=taps, row_lo=row_lo, tile_skip=tile_skip,
     )
     packed = _srgb.pack_srgb(frame, channels)
+
+    n_dmg = torch.zeros((), dtype=torch.int64, device=dev)
+    dmg = None
+    if cache is not None:
+        # Unchanged and out-of-crop tiles re-emit the previous frame's
+        # pixels, so the frame returned is the next cache state.
+        reemit = tile_unch if out_of_crop is None else tile_unch | out_of_crop
+        pix = reemit.reshape(rows, 1, tiles_x, 1).expand(
+            rows, consts.TILE_HEIGHT, tiles_x, consts.TILE_WIDTH
+        ).reshape(rows * consts.TILE_HEIGHT, tiles_x * consts.TILE_WIDTH, 1)
+        packed = torch.where(pix, prev_frame, packed)
+
+        # Damage-aware readback: the changed tiles, compacted, so the host
+        # reads kilobytes, not the frame (the transfer side of the
+        # reference's TileWriteOp::None).  Past DMG_CAP tiles the caller
+        # reads the whole frame instead.
+        changed = ~reemit
+        n_dmg = changed.sum(dtype=torch.int64)
+        pos = torch.cumsum(changed, 0) - 1
+        tgt = torch.where(changed & (pos < DMG_CAP), pos, DMG_CAP)
+        dmg_idx = torch.full((DMG_CAP + 1,), n_tiles, dtype=torch.int32, device=dev)
+        dmg_idx.scatter_(0, tgt, torch.arange(n_tiles, dtype=torch.int32, device=dev))
+        dmg_idx = dmg_idx[:DMG_CAP]
+        tiles8 = (
+            packed.reshape(rows, consts.TILE_HEIGHT, tiles_x, -1)
+            .permute(0, 2, 1, 3)
+            .reshape(n_tiles, consts.TILE_HEIGHT, -1)
+        )
+        dmg_tiles = tiles8[torch.clamp(dmg_idx.long(), max=n_tiles - 1)]
+        dmg = (dmg_idx, dmg_tiles)
 
     diag = torch.stack(
         [
@@ -170,9 +270,11 @@ def _back(
             rd["v_total"].long(),
             k_needed.long(),
             total_segs.long(),
-            torch.zeros((), dtype=torch.int64, device=packed.device),
+            n_dmg,
         ]
     )
+    if cache is not None:
+        return packed, diag, counts, dmg
     return packed, diag
 
 
@@ -180,16 +282,42 @@ def render_frame(
     px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
     width: int, height: int, rows: int, tiles_x: int,
     caps: Caps, features: Features, channels,
+    row_lo: int = 0,  # first tile row to render (a row-span crop)
+    crop_x=None,  # (tile_x_lo, tile_x_hi): tile columns to paint
     expand: str = "fused",  # "fused" (K4) or "split" (K1 + PyTorch emit)
     plain: bool = False,  # run every kernel's plain PyTorch version
     taps=None,  # dict: receives each kernel's input tuple when given
 ):
-    """Single-device render of tile rows [0, rows); returns (u8 frame
-    [rows*16, tiles_x*16, C], int64 [6] diagnostics)."""
+    """Single-device render of tile rows [row_lo, row_lo + rows); returns
+    (u8 frame [rows*16, tiles_x*16, C], int64 [6] diagnostics)."""
     return _core(
         px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
         width, height, rows, tiles_x, caps, features, channels,
-        expand=expand, plain=plain, taps=taps,
+        row_lo=row_lo, crop_x=crop_x, expand=expand, plain=plain, taps=taps,
+    )
+
+
+def render_frame_cached(
+    px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
+    prev_frame, prev_counts, st_unchanged, cache_ok: bool,
+    width: int, height: int, rows: int, tiles_x: int,
+    caps: Caps, features: Features, channels,
+    crop_x=None,  # (tile_x_lo, tile_x_hi): paint crop, default full
+    crop_y=None,  # (tile_row_lo, tile_row_hi): paint crop, default full
+    expand: str = "fused", plain: bool = False, taps=None,
+):
+    """Damage-aware render: unchanged tiles re-emit `prev_frame` pixels and
+    add nothing to the fold depth; with a crop, out-of-crop tiles re-emit
+    them too.  Returns (u8 frame, diag, per-tile unit counts i32 [T] to
+    keep for the next frame, (dmg_idx i32 [DMG_CAP], dmg_tiles u8
+    [DMG_CAP, TILE_HEIGHT, TILE_WIDTH * C])): the first diag[DIAG_DMG]
+    entries are the changed tiles' indices and pixels.  `cache_ok` False
+    (no usable previous frame) marks every tile changed."""
+    return _core(
+        px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
+        width, height, rows, tiles_x, caps, features, channels,
+        cache=(prev_frame, prev_counts, st_unchanged, cache_ok),
+        crop_x=crop_x, crop_y=crop_y, expand=expand, plain=plain, taps=taps,
     )
 
 

@@ -41,7 +41,7 @@ def extract_runs(key_hi, key_lo):
     """Per-segment run ids over the sorted keys; returns (run_id i64,
     num_runs (0-d, incl. the sentinel run), new_run bool)."""
     new_run = (key_hi != _roll1(key_hi)) | (key_lo != _roll1(key_lo))
-    new_run[0] = True
+    new_run[:1].fill_(True)
     run_id = torch.cumsum(new_run, 0) - 1
     return run_id, run_id[-1] + 1, new_run
 
@@ -117,7 +117,7 @@ def run_data(
         rowcov_s = rowcov[orig].long()
 
     new_group = key2_s != _roll1(key2_s)
-    new_group[0] = True
+    new_group[:1].fill_(True)
     # Scanned along the innermost dim: PyTorch's CUDA scan over the outer
     # dim of an [R, 16] tensor runs ~16 threads wide (113 ms at paris
     # scale on the H100, against well under a millisecond transposed).
@@ -130,7 +130,7 @@ def run_data(
     valid_s = key2_s != SENTINEL
     tx_s = (txb_s - 1).to(torch.int32)  # wraps the sentinel like the u32 cast
     next_same = torch.roll(key2_s, -1, 0) == key2_s
-    next_same[-1] = False
+    next_same[-1:].fill_(False)
     tx_next = torch.roll(tx_s, -1, 0)
     span = torch.where(next_same, tx_next - tx_s - 1, (tiles_x - 1) - tx_s)
     span = torch.clamp(span, min=0)
@@ -249,7 +249,7 @@ def sort_units(key_u, layer_u, src_u, src2_u, virt_u):
     src2_u = src2_u[order]
     virt_u = virt_u[order]
     new_tile = key_u != _roll1(key_u)
-    new_tile[0] = True
+    new_tile[:1].fill_(True)
     first = _first_of_group(new_tile)
     k = (torch.arange(key_u.shape[0], device=key_u.device) - first).to(torch.int32)
     u_valid = key_u != SENTINEL

@@ -1,10 +1,20 @@
 """The PyTorch renderer facade.
 
-Counterpart of `forma_tpu/renderer.py:28-57,59-360,991-1079`.  Each frame
-runs the pipeline (`ops/pipeline.render_frame`) with optimistic capacity
+Counterpart of `forma_tpu/renderer.py:28-745,991-1079`.  Each frame runs
+the pipeline (`ops/pipeline.render_frame`) with optimistic capacity
 buckets: the packed frame and a diagnostics vector come back together, the
 diagnostics cross to the host once, and if any actual total exceeded its
 bucket the buckets grow (sticky, fine-grained) and the frame re-renders.
+`render_device(check_caps=False)` skips that read: frames queue back to
+back and the caller checks the device diagnostics afterwards.
+
+Incremental frames: `render(crop=)` and `render_into(crop=)` paint only
+the tiles of a rect; a `BufferLayerCache` (`create_buffer_layer_cache`)
+keeps the previous frame on the device, re-emits unchanged tiles and reads
+back only the damaged ones, in one round trip whose pixel prefix adapts to
+the previous frame's damage; `render_into(pipelined=True)` overlaps frame
+i's readback (non-blocking copies into pinned host memory on a CUDA
+device) with frame i + 1's dispatch.
 
 Geometry tensors are cached on the segment buffer's version and only
 re-upload when paths change; per-frame host work is O(#geometries +
@@ -19,7 +29,7 @@ import numpy as np
 import torch
 
 from . import consts
-from .buffer import RGBA
+from .buffer import RGBA, Buffer, BufferLayerCache, LinearLayout
 from .buffer import normalize_channels as _normalize_channels
 from .composition import Composition
 from .ops import pipeline as _pipe
@@ -33,6 +43,13 @@ def _bucket(n: int, lo: int = 256) -> int:
     while c < n:
         c <<= 1
     return c
+
+
+# Minimum damaged-tile pixel prefix read back with the diagnostics; the
+# renderer adapts it to the previous frame's damage (damage is coherent from
+# frame to frame), so a steady incremental frame takes one round trip with
+# bytes ~ its damage.  A larger frame reads one 64-aligned remainder slice.
+_DMG_PREFIX = 64
 
 
 def _bucket_fine(n: int, lo: int = 256) -> int:
@@ -93,20 +110,61 @@ class Renderer:
         self._estimate_key = None
         self._style_map = _styles.StyleMap()
         self._caps = caps if caps is not None else _pipe.Caps()
+        self._cache_slots = 0  # 32-bit set of handed-out layer-cache ids
         self.last_diag: Optional[np.ndarray] = None
+        self._last_dmg = None  # compact damaged-tile readback (idx, tiles)
+        # `regrow_count` counts entries into the growth loop (tests assert a
+        # warmed animation never re-enters it); transform churn between
+        # renders flips `_animating`, and `announce_max_scale` bounds zooms.
         self.regrow_count = 0
         self._animating = False
         self._last_tver = None
+        self._announced_scale = 1.0
+        self._dmg_prefix = _DMG_PREFIX  # adaptive damage-readback prefix
+        self.readback_bytes = 0  # bytes the damage-cached path read back
+        self._pending = None  # in-flight pipelined frame (ticket, buffer, ...)
 
     def _tensor(self, a) -> torch.Tensor:
         return from_numpy(a, self.device)  # a copy: host arrays may change
 
+    # -- layer caches --------------------------------------------------------
+
+    def create_buffer_layer_cache(self):
+        """Hands out one of <= 32 damage-cache slots
+        (`cpu/renderer.rs:67-73`); returns None when exhausted."""
+        for i in range(32):
+            if not self._cache_slots & (1 << i):
+                self._cache_slots |= 1 << i
+                return BufferLayerCache(i, self)
+        return None
+
+    def _release_cache_slot(self, cache_id: int):
+        self._cache_slots &= ~(1 << cache_id)
+
     # -- capacity headroom ---------------------------------------------------
 
-    def _cap_headroom(self) -> float:
-        """Capacity slack while transforms churn between frames (~20%),
-        applied at the animating flip and to any regrow."""
-        return 1.20 if self._animating else 1.0
+    def _cap_headroom(self, area: bool = False) -> float:
+        """Capacity slack while transforms churn between frames (~20%, or
+        the announced zoom bound), applied at the animating flip and to any
+        regrow.  `area`: the slack of the virtual units (the gap tiles
+        inside shapes), which grow with the area a zoom covers: with the
+        square of the announced bound (the JAX package's linear bound
+        regrows there on a zoom of paris-30k)."""
+        h = 1.20 if self._animating else 1.0
+        if self._announced_scale > 1.0:
+            s = self._announced_scale ** 2 if area else self._announced_scale
+            h = max(h, s * 1.0626)
+        return h
+
+    def announce_max_scale(self, scale: float):
+        """Declares the largest zoom an upcoming animation applies relative
+        to the composition's current transforms, so that the capacity
+        estimate bounds line lengths over the whole sequence and a zoom-in
+        never regrows mid-animation.  Scales below an announced bound are
+        ignored."""
+        if scale > self._announced_scale:
+            self._announced_scale = float(scale)
+            self._estimate_key = None  # re-estimate at the new bound
 
     # -- geometry upload -----------------------------------------------------
 
@@ -214,7 +272,7 @@ class Renderer:
         self._last_tver = shared.tform_version
         ekey = (
             buf.serial, buf.version, shared.scene_version, width, height,
-            self._animating,
+            self._animating, self._announced_scale,
         )
         if self._estimate_key == ekey:
             return
@@ -254,14 +312,19 @@ class Renderer:
                 return np.maximum((np.ceil(mx) - np.floor(mn) - 1), 0)
 
             lengths = np.where(valid, ib(q0x, q1x) + ib(q0y, q1y) + 1, 0)
+            if self._announced_scale > 1.0:
+                # The bound over the announced zoom: lengths scale about
+                # linearly with the transform, plus the ceil/floor slack.
+                sc = self._announced_scale
+                lengths = np.where(valid, lengths * sc + (sc + 1.0), 0.0)
             vlines = int(np.ceil(lengths / _pipe.K_SEG).sum())
         headroom = 1.20 if self._animating else 1.0626
         caps = self._caps
-        h = self._cap_headroom()
+        h, hv = self._cap_headroom(), self._cap_headroom(area=True)
         self._caps = _pipe.Caps(
             vline=max(caps.vline, _bucket_fine(int(vlines * headroom) + 512)),
             run=max(caps.run, _bucket_fine(int(caps.run * h))) if h > 1.0 else caps.run,
-            virt=max(caps.virt, _bucket_fine(int(caps.virt * h))) if h > 1.0 else caps.virt,
+            virt=max(caps.virt, _bucket_fine(int(caps.virt * hv))) if hv > 1.0 else caps.virt,
             k=max(
                 caps.k,
                 256 if vlines > 100_000 else caps.k,
@@ -271,50 +334,12 @@ class Renderer:
 
     # -- rendering -----------------------------------------------------------
 
-    def render(
-        self,
-        composition: Composition,
-        width: int,
-        height: int,
-        clear_color: Color = Color(0.0, 0.0, 0.0, 1.0),
-        channels=RGBA,
-        crop=None,
-    ) -> np.ndarray:
-        """Renders and returns u8 [height, width, 4] in channel order."""
-        if crop is not None:
-            raise _not_ported("crop", "5 (incremental frames)")
-        frame, _ = self.render_device(composition, width, height, clear_color, channels)
-        return frame[:height, :width].cpu().numpy()
-
-    def render_device(
-        self,
-        composition: Composition,
-        width: int,
-        height: int,
-        clear_color: Color = Color(0.0, 0.0, 0.0, 1.0),
-        channels=RGBA,
-        plain: bool = False,  # run every kernel's plain PyTorch version
-        taps=None,  # dict: receives each kernel's inputs (last attempt)
-    ):
-        """Renders; returns (u8 frame tensor [rows*16, tiles_x*16, C] on the
-        device, diag as numpy).  The diagnostics cross to the host once per
-        attempt; on overflow the buckets grow and the frame re-renders.
-
-        Scope: whole, uncached frames on one device, every fill, blend
-        mode and clip, on either sort key.  Where [row | slot | tx] fits
-        31 bits (`pipeline.slot_bits_for`), the packed key through the
-        renderer's `expand` path; otherwise the two-key route, which takes
-        the expand kernel (K1) and the emit in PyTorch whatever `expand`
-        says (the fused kernel packs only the one-word key), then the
-        grid and fold kernels as every frame does.  On a CUDA device a
-        kernel that fails to build or launch raises; nothing falls back to
-        a plain version."""
-        composition.compact_geom()
-        composition._shared.props_interner.compact()
-
-        rows = -(-height // consts.TILE_HEIGHT)
-        tiles_x = -(-width // consts.TILE_WIDTH)
-
+    def _frame_inputs(self, composition: Composition, width: int, height: int,
+                      clear_color: Color, channels):
+        """The pipeline's device inputs for a frame of a compacted
+        composition: ((px, py, line_slot, g_slot, g_valid, g_t, g_has_t,
+        st, clear), host style tables, channel codes), each cached on the
+        versions it depends on."""
         px, py, line_slot, uniq = self._prepare_geometry(composition)
         self._estimate_caps(composition, width, height)
 
@@ -337,46 +362,430 @@ class Renderer:
         g_slot, g_valid, g_t, g_has_t = self._geom_tables(
             composition, uniq, st_host.orders
         )
-        clear = torch.tensor(
-            clear_color.to_array(), dtype=torch.float32, device=self.device
+        clear = self._tensor(np.asarray(clear_color.to_array(), np.float32))
+        chans = tuple(ch.value for ch in _normalize_channels(channels, clear_color))
+        inputs = (px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear)
+        return inputs, st_host, chans
+
+    def _fits(self, d, caps) -> bool:
+        return (
+            d[_pipe.DIAG_VLINES] <= caps.vline
+            and d[_pipe.DIAG_RUNS] <= caps.run
+            and d[_pipe.DIAG_VIRT] <= caps.virt
+            and d[_pipe.DIAG_K] <= caps.k
         )
+
+    def _grow(self, d):
+        """Grows the buckets past the totals of diagnostics `d`."""
+        self.regrow_count += 1
+        h, hv = self._cap_headroom(), self._cap_headroom(area=True)
+        caps = self._caps
+        self._caps = _pipe.Caps(
+            vline=max(caps.vline, _bucket_fine(int(d[_pipe.DIAG_VLINES] * h) + 1)),
+            run=max(caps.run, _bucket_fine(int(d[_pipe.DIAG_RUNS] * h))),
+            virt=max(caps.virt, _bucket_fine(int(d[_pipe.DIAG_VIRT] * hv) + 1)),
+            k=max(caps.k, _bucket(max(int(d[_pipe.DIAG_K] * h), 1), lo=4)),
+        )
+
+    def render(
+        self,
+        composition: Composition,
+        width: int,
+        height: int,
+        clear_color: Color = Color(0.0, 0.0, 0.0, 1.0),
+        channels=RGBA,
+        crop=None,
+    ) -> np.ndarray:
+        """Renders and returns u8 [height, width, 4] in channel order.
+        With `crop` (a `Rect`), pixels outside its tile-aligned rect stay
+        zero."""
+        if crop is not None:
+            out = np.zeros((height, width * 4), np.uint8)
+            self.render_into(
+                composition,
+                Buffer(buffer=out, layout=LinearLayout(width, width * 4, height)),
+                clear_color, channels, crop,
+            )
+            return out.reshape(height, width, 4)
+        frame, _ = self.render_device(composition, width, height, clear_color, channels)
+        return frame[:height, :width].cpu().numpy()
+
+    def render_into(
+        self,
+        composition: Composition,
+        buffer: Buffer,
+        clear_color: Color = Color(0.0, 0.0, 0.0, 1.0),
+        channels=RGBA,
+        crop=None,
+        pipelined: bool = False,
+    ):
+        """Renders into a `Buffer` (numpy u8 [H, width_stride]); pixels
+        outside `crop` (a tile-aligned `Rect`) are left untouched
+        (`cpu::Renderer::render`, `forma/src/cpu/renderer.rs:75`).
+
+        With `buffer.layer_cache` set, unchanged tiles (same layer set,
+        every layer's is_unchanged bit, same clear colour) re-emit the
+        previous frame's pixels and skip painting, and only the damaged
+        tiles are read back and written.
+
+        `pipelined=True` (cached, uncropped renders only) overlaps the
+        damage readback with the next frame's dispatch: the call returns
+        after writing the previous frame's pixels into its buffer (one
+        frame of latency), and `flush_pending()` completes the last frame.
+        The pixels over a whole animation are byte-equal to the synchronous
+        path's."""
+        layout = buffer.layout
+        w, h = layout.width(), layout.height()
+        cache = buffer.layer_cache
+        if pipelined and cache is not None and crop is None:
+            t = self._dispatch_cached(composition, cache, w, h, clear_color, channels)
+            prev = self._pending
+            self._pending = (t, buffer, layout, h, w)
+            if prev is not None:
+                self._complete_pending(prev, next_ticket=t)
+            return
+        self.flush_pending()
+        if crop is not None:
+            # Work-culling crop: only tiles inside the rect paint
+            # (`cpu/renderer.rs:38-53`).  The damage cache survives cropped
+            # renders: in-crop tiles update it, out-of-crop tiles keep their
+            # entries, and the layers' is_unchanged bits stay as they were,
+            # so out-of-crop tiles of a changed layer never go stale.
+            rows_total = -(-h // consts.TILE_HEIGHT)
+            y0t = max(crop.vert.start, 0)
+            y1t = min(crop.vert.stop, rows_total)
+            if y0t >= y1t:
+                return
+            x0 = max(crop.hor.start, 0) * consts.TILE_WIDTH
+            x1 = min(crop.hor.stop * consts.TILE_WIDTH, w)
+            y0 = y0t * consts.TILE_HEIGHT
+            y1 = min(y1t * consts.TILE_HEIGHT, h)
+            if cache is not None:
+                frame, d = self._render_device_cached(
+                    composition, cache, w, h, clear_color, channels,
+                    crop=(y0t, y1t, crop.hor.start, crop.hor.stop),
+                )
+                # Out-of-crop tiles re-emit cached pixels, so they are never
+                # damaged; only painted in-crop tiles write back.
+                self._write_back(buffer, layout, frame, d, h, w, rect=(y0, y1, x0, x1))
+                return
+            frame, _ = self.render_device(
+                composition, w, h, clear_color, channels,
+                row_span=(y0t, y1t), crop_x=(crop.hor.start, crop.hor.stop),
+            )
+            img = frame[: y1 - y0, x0:x1].cpu().numpy()
+            layout.write(buffer.buffer, img, rect=(y0, y1, x0, x1))
+            return
+        if cache is None:
+            frame, _ = self.render_device(composition, w, h, clear_color, channels)
+            layout.write(buffer.buffer, frame[:h, :w].cpu().numpy())
+            return
+        frame, d = self._render_device_cached(composition, cache, w, h, clear_color,
+                                              channels)
+        self._write_back(buffer, layout, frame, d, h, w)
+
+    def flush_pending(self):
+        """Completes the in-flight `render_into(pipelined=True)` frame, if
+        any: waits for its damage readback and writes its pixels into its
+        buffer.  Call once after the last pipelined frame; the synchronous
+        entry points flush first."""
+        prev = self._pending
+        if prev is None:
+            return
+        self._pending = None
+        self._complete_pending(prev, next_ticket=None)
+
+    def _complete_pending(self, pend, next_ticket=None):
+        """Resolves a pipelined frame and writes it back.  If resolving
+        forced a capacity re-render, the successor ticket, dispatched
+        against the cache state before the correction, is re-issued."""
+        t, buffer, layout, h, w = pend
+        frame, d = self._resolve_cached(t)
+        if t.get("recovered") and next_ticket is not None:
+            self._redispatch_cached(next_ticket)
+        self._write_back(buffer, layout, frame, d, h, w)
+
+    def _write_back(self, buffer, layout, frame, d, h, w, rect=None):
+        """Damage-aware host write: only the changed tiles' pixels were
+        read back, and only they are written (a layer cache assumes the
+        same buffer is presented every frame, `layer_workbench/mod.rs:
+        280-342`).  Falls back to the whole frame (or the crop rect) when
+        the damage passes `DMG_CAP` tiles."""
+        n_dmg = int(d[_pipe.DIAG_DMG]) if d is not None else _pipe.DMG_CAP + 1
+        if n_dmg == 0:
+            return  # fully unchanged: the buffer is not touched at all
+        dmg = self._last_dmg
+        if dmg is not None and n_dmg <= _pipe.DMG_CAP:
+            idx, tiles = dmg
+            layout.write_tiles(buffer.buffer, idx[:n_dmg], tiles[:n_dmg])
+            return
+        y0, y1, x0, x1 = (0, h, 0, w) if rect is None else rect
+        img = frame[y0:y1, x0:x1].cpu().numpy()
+        self.readback_bytes += img.nbytes
+        layout.write(buffer.buffer, img, rect=rect)
+
+    def _render_device_cached(
+        self, composition, cache, width, height, clear_color, channels,
+        crop=None,  # (tile_row_lo, tile_row_hi, tile_x_lo, tile_x_hi)
+        taps=None,  # dict: receives each kernel's inputs (last attempt)
+    ):
+        """Damage-aware render; updates `cache`'s device state and the
+        layers' is_unchanged bits (`cpu/renderer.rs:217-223`); returns
+        (u8 frame on the device, diag as numpy).
+
+        With `crop`, out-of-crop tiles skip painting and re-emit their
+        cached pixels; the is_unchanged bits are not updated (a cropped
+        render must not certify out-of-crop tiles as current), and the
+        whole-frame no-dispatch key resets."""
+        self.flush_pending()
+        t = self._dispatch_cached(composition, cache, width, height, clear_color,
+                                  channels, crop, taps)
+        return self._resolve_cached(t)
+
+    def _dispatch_cached(
+        self, composition, cache, width, height, clear_color, channels,
+        crop=None, taps=None,
+    ):
+        """Queues one cached frame and starts its damage readback; returns a
+        ticket for `_resolve_cached`.  The ticket keeps every input, so a
+        capacity overflow found at resolve time can re-render this frame
+        with grown buckets, and an already dispatched successor can be
+        re-issued against the corrected cache state."""
+        rows = -(-height // consts.TILE_HEIGHT)
+        tiles_x = -(-width // consts.TILE_WIDTH)
+        n_tiles = rows * tiles_x
         chans = tuple(ch.value for ch in _normalize_channels(channels, clear_color))
 
+        # A completely unchanged scene re-emits the cached frame with no
+        # dispatch at all (the whole-frame TileWriteOp::None).
+        composition.compact_geom()
+        composition._shared.props_interner.compact()
+        shared = composition._shared
+        vkey = (
+            shared.segment_buffer.serial, shared.segment_buffer.version,
+            shared.scene_version, shared.style_version, shared.tform_version,
+            width, height, chans, clear_color,
+        )
+        if cache.prev_frame is not None and getattr(cache, "_vkey", None) == vkey:
+            return {"noop": True, "cache": cache}
+
+        inputs, st_host, chans = self._frame_inputs(
+            composition, width, height, clear_color, channels
+        )
+        reg = shared.registry
+        bit = np.uint32(1 << cache.id)
+        has_layers = len(composition.layers) > 0
+        if has_layers:
+            st_unchanged = (reg.unchanged[st_host.lslot] & bit) != 0
+        else:
+            st_unchanged = np.zeros(st_host.lslot.shape[0], bool)
+
+        cache_ok = (
+            cache.prev_frame is not None
+            and cache.width == width
+            and cache.height == height
+            and cache.channels == chans
+            and cache.clear_color == clear_color
+        )
+        if cache_ok:
+            prev_frame, prev_counts = cache.prev_frame, cache.prev_counts
+        else:
+            prev_frame = torch.zeros(
+                (rows * consts.TILE_HEIGHT, tiles_x * consts.TILE_WIDTH, len(chans)),
+                dtype=torch.uint8, device=self.device,
+            )
+            prev_counts = torch.full((n_tiles,), -1, dtype=torch.int32, device=self.device)
+
+        crop_x = crop_y = None
+        if crop is not None:
+            crop_y, crop_x = tuple(crop[:2]), tuple(crop[2:])
+        t = {
+            "noop": False,
+            "cache": cache,
+            "inputs": inputs,
+            "prev": (prev_frame, prev_counts, self._tensor(st_unchanged), cache_ok),
+            "dims": (width, height, rows, tiles_x),
+            "chans": chans,
+            "features": st_host.features,
+            "crop": (crop_x, crop_y),
+            "taps": taps,
+            "recovered": False,
+        }
+        self._issue_cached(t)
+
+        # Device-side cache chaining: the next dispatch may consume these
+        # before this frame's diagnostics are read (pipelined mode);
+        # `_resolve_cached` corrects them if an overflow forces a re-render.
+        cache.prev_frame = t["frame"]
+        cache.prev_counts = t["counts"]
+        cache.width, cache.height = width, height
+        cache.channels = chans
+        cache.clear_color = clear_color
+        if crop is None:
+            cache._vkey = vkey
+            # Every enabled rendered layer is now unchanged for this slot.
+            if has_layers:
+                reg.unchanged[st_host.lslot] = np.where(
+                    reg.valid[st_host.lslot],
+                    reg.unchanged[st_host.lslot] | bit,
+                    reg.unchanged[st_host.lslot] & ~bit,
+                )
+        else:
+            cache._vkey = None
+        return t
+
+    def _issue_cached(self, t):
+        """Queues the frame of a ticket with the current caps and its kept
+        previous state, and starts the damage readback: the diagnostics,
+        the damaged tiles' indices and a pixel prefix sized from the
+        previous frame's damage, copied without blocking into pinned host
+        tensors of the ticket's own (on a CUDA device), an event recorded
+        after them.  On the CPU the results are the host tensors."""
+        width, height, rows, tiles_x = t["dims"]
+        prev_frame, prev_counts, st_unchanged, cache_ok = t["prev"]
+        crop_x, crop_y = t["crop"]
+        frame, diag, counts, dmg = _pipe.render_frame_cached(
+            *t["inputs"],
+            prev_frame, prev_counts, st_unchanged, cache_ok,
+            width, height, rows, tiles_x,
+            self._caps, t["features"], t["chans"],
+            crop_x=crop_x, crop_y=crop_y, expand=self.expand, taps=t["taps"],
+        )
+        pfx = self._dmg_prefix
+        reads = (diag, dmg[0], dmg[1][:pfx])
+        event = None
+        if frame.is_cuda:
+            # A fresh pinned set per ticket: two tickets in flight never
+            # share host memory (PyTorch's pinned allocator reuses a block
+            # only after the copies recorded on it have run).
+            host = tuple(torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                         for a in reads)
+            for h, a in zip(host, reads):
+                h.copy_(a, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            reads = host
+        self.readback_bytes += sum(a.numel() * a.element_size() for a in reads)
+        t.update(frame=frame, counts=counts, dmg=dmg, reads=reads, event=event,
+                 pfx=pfx, caps=self._caps)
+
+    def _redispatch_cached(self, t):
+        """Re-issues an in-flight ticket after an earlier frame's capacity
+        recovery replaced the cache arrays it was dispatched against; a
+        no-op for a ticket that never dispatched."""
+        if t["noop"]:
+            return
+        cache = t["cache"]
+        _, _, st_unchanged, cache_ok = t["prev"]
+        t["prev"] = (cache.prev_frame, cache.prev_counts, st_unchanged, cache_ok)
+        self._issue_cached(t)
+        cache.prev_frame = t["frame"]
+        cache.prev_counts = t["counts"]
+
+    def _resolve_cached(self, t):
+        """Waits for a ticket's damage readback, growing the buckets and
+        re-rendering on overflow; returns (frame, diagnostics) and leaves
+        the compact damaged-tile data in `self._last_dmg`."""
+        if t["noop"]:
+            if self.last_diag is not None:
+                self.last_diag = self.last_diag.copy()
+                self.last_diag[_pipe.DIAG_K] = 0  # nothing painted
+                self.last_diag[_pipe.DIAG_DMG] = 0  # nothing to write back
+            self._last_dmg = None
+            return t["cache"].prev_frame, self.last_diag
+
+        for _ in range(8):
+            if t["event"] is not None:
+                t["event"].synchronize()
+            d, idx_h, head = (a.numpy() for a in t["reads"])
+            frame, dmg, pfx = t["frame"], t["dmg"], t["pfx"]
+            n_dmg = int(d[_pipe.DIAG_DMG])
+            if n_dmg <= pfx or n_dmg > _pipe.DMG_CAP:
+                self._last_dmg = (idx_h, head)
+            else:
+                m = min(-(-n_dmg // 64) * 64, _pipe.DMG_CAP)
+                rest = dmg[1][pfx:m].cpu().numpy()
+                self.readback_bytes += rest.nbytes
+                self._last_dmg = (idx_h, np.concatenate([head, rest], axis=0))
+            if n_dmg <= _pipe.DMG_CAP:
+                # 25% headroom, 64-aligned, at least the minimum prefix: it
+                # shrinks with the damage and grows past a misprediction.
+                self._dmg_prefix = int(min(
+                    max(_DMG_PREFIX, -(-(n_dmg * 5 // 4) // 64) * 64), _pipe.DMG_CAP
+                ))
+            if self._fits(d, t["caps"]):
+                break
+            self._grow(d)
+            # Re-render this frame against its kept previous state with the
+            # grown buckets, and correct the chained cache arrays.
+            t["recovered"] = True
+            self._issue_cached(t)
+            cache = t["cache"]
+            cache.prev_frame = t["frame"]
+            cache.prev_counts = t["counts"]
+        else:
+            raise RuntimeError(f"capacity growth did not converge: {d}")
+        self.last_diag = d
+        return frame, d
+
+    def render_device(
+        self,
+        composition: Composition,
+        width: int,
+        height: int,
+        clear_color: Color = Color(0.0, 0.0, 0.0, 1.0),
+        channels=RGBA,
+        check_caps: bool = True,
+        row_span=None,  # (tile_row_lo, tile_row_hi): render only these rows
+        crop_x=None,  # (tile_x_lo, tile_x_hi): paint only these tile columns
+        plain: bool = False,  # run every kernel's plain PyTorch version
+        taps=None,  # dict: receives each kernel's inputs (last attempt)
+    ):
+        """Renders; returns (u8 frame tensor [rows*16, tiles_x*16, C] on the
+        device, diag).  With `check_caps` (the default) the diagnostics
+        cross to the host as numpy once per attempt, and on overflow the
+        buckets grow and the frame re-renders.  With `check_caps=False`
+        nothing is read back: diag stays a device tensor, frames queue back
+        to back, and the caller checks the diagnostics afterwards.  With
+        `row_span`, the frame holds tile rows [lo, hi) only.
+
+        Every fill, blend mode and clip, on either sort key: where [row |
+        slot | tx] fits 31 bits (`pipeline.slot_bits_for`), the packed key
+        through the renderer's `expand` path; otherwise the two-key route,
+        which takes the expand kernel (K1) and the emit in PyTorch whatever
+        `expand` says (the fused kernel packs only the one-word key), then
+        the grid and fold kernels as every frame does.  On a CUDA device a
+        kernel that fails to build or launch raises; nothing falls back to
+        a plain version."""
+        self.flush_pending()
+        composition.compact_geom()
+        composition._shared.props_interner.compact()
+        rows = -(-height // consts.TILE_HEIGHT)
+        tiles_x = -(-width // consts.TILE_WIDTH)
+        row_lo = 0
+        if row_span is not None:
+            row_lo = row_span[0]
+            rows = row_span[1] - row_span[0]
+        inputs, st_host, chans = self._frame_inputs(
+            composition, width, height, clear_color, channels
+        )
         for _ in range(8):  # bounded growth retries
             frame, diag = _pipe.render_frame(
-                px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
-                width, height, rows, tiles_x,
+                *inputs, width, height, rows, tiles_x,
                 self._caps, st_host.features, chans,
+                row_lo=row_lo, crop_x=None if crop_x is None else tuple(crop_x),
                 expand=self.expand, plain=plain, taps=taps,
             )
+            if not check_caps:
+                return frame, diag
             d = diag.cpu().numpy()
-            caps = self._caps
-            if (
-                d[_pipe.DIAG_VLINES] <= caps.vline
-                and d[_pipe.DIAG_RUNS] <= caps.run
-                and d[_pipe.DIAG_VIRT] <= caps.virt
-                and d[_pipe.DIAG_K] <= caps.k
-            ):
+            if self._fits(d, self._caps):
                 self.last_diag = d
                 return frame, d
-            self.regrow_count += 1
-            h = self._cap_headroom()
-            self._caps = _pipe.Caps(
-                vline=max(caps.vline, _bucket_fine(int(d[_pipe.DIAG_VLINES] * h) + 1)),
-                run=max(caps.run, _bucket_fine(int(d[_pipe.DIAG_RUNS] * h))),
-                virt=max(caps.virt, _bucket_fine(int(d[_pipe.DIAG_VIRT] * h) + 1)),
-                k=max(caps.k, _bucket(max(int(d[_pipe.DIAG_K] * h), 1), lo=4)),
-            )
+            self._grow(d)
         raise RuntimeError(f"capacity growth did not converge: {d}")
 
     # -- not in this slice -------------------------------------------------
-
-    def render_into(self, *args, **kwargs):
-        raise _not_ported("render_into (buffers, pipelined readback)",
-                          "1 (buffers) and 5 (pipelined readback)")
-
-    def create_buffer_layer_cache(self):
-        raise _not_ported("the damage cache", "5 (incremental frames)")
 
     def render_device_sharded(self, *args, **kwargs):
         raise _not_ported("the framebuffer-sharded path", "7 (multi-device paths)")

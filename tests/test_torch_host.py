@@ -32,7 +32,7 @@ IMPORT_RE = re.compile(r"^\s*(from|import) forma_tpu(\.|\s|$)", re.M)
 def test_import_loads_neither_jax_nor_forma_tpu():
     code = (
         "import sys, forma_tpu_torch, forma_tpu_torch.demos.scenes, "
-        "forma_tpu_torch.convert\n"
+        "forma_tpu_torch.demos.spaceship, forma_tpu_torch.convert\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.split('.')[0] == 'forma_tpu']\n"
         "assert not bad, bad\n"
@@ -212,6 +212,12 @@ def _demo_scene(pkg_scenes, pkg, kind):
         pkg_scenes.textured_mix(comp, 300, 512, 512)
     elif kind in ("paris30k_styled", "paris30k_textured"):
         getattr(pkg_scenes, kind)(comp, 256, 256, paths=400)
+    elif kind == "spaceship":
+        # `spaceship` (a module of the demos) built and stepped 3 times.
+        ship = pkg_scenes.Spaceship(width=256, height=256)
+        ship.build(comp)
+        for _ in range(3):
+            ship.step()
     else:
         pkg_scenes.paris30k(comp, 256, 256, paths=400)
     return comp
@@ -219,13 +225,20 @@ def _demo_scene(pkg_scenes, pkg, kind):
 
 @pytest.mark.parametrize(
     "kind", ["circles", "paris30k", "paris30k_styled", "paris30k_textured",
-             "textured_mix", "edited-0", "edited-1"]
+             "textured_mix", "edited-0", "edited-1", "spaceship"]
 )
 def test_port_builds_scene_as_jax(kind):
     """The demo scenes (`textured_mix`, the port's own, built through the
-    JAX package's classes by `test_torch_texture.JAX_SCENES`): equal
-    buffers, registries and style tables, the texture atlas included."""
-    if kind.startswith("edited"):
+    JAX package's classes by `test_torch_texture.JAX_SCENES`; the
+    spaceship after 3 steps): equal buffers, registries and style tables,
+    the texture atlas included."""
+    if kind == "spaceship":
+        from forma_tpu.demos import spaceship as jax_spaceship
+        from forma_tpu_torch.demos import spaceship as port_spaceship
+
+        comp = _demo_scene(jax_spaceship, forma_tpu, kind)
+        port = _demo_scene(port_spaceship, forma_tpu_torch, kind)
+    elif kind.startswith("edited"):
         seed = int(kind.split("-")[1])
         comp, port = (_edited_scene(pkg, seed) for pkg in (forma_tpu, forma_tpu_torch))
     elif kind == "textured_mix":

@@ -221,12 +221,10 @@ def test_import_leaves_jax_out():
 
 
 def test_unported_entry_points_raise():
-    comp = composition_from_jax(_circles(4))
+    """Only the two sharded entry points (ROADMAP.md section 1, item 7)
+    are not ported."""
     r = Renderer("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.render(comp, 64, 64, CLEAR, crop=object())
-    for call in (r.render_into, r.create_buffer_layer_cache,
-                 r.render_device_sharded, r.render_device_sharded_lines):
+    for call in (r.render_device_sharded, r.render_device_sharded_lines):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 
