@@ -139,15 +139,36 @@ failure exits non-zero:
    key (slot_bits > 0) and the last frame against the plain path on the
    card (max channel diff <= 1); then a fresh renderer zooms each scene
    from 0.6 to 0.9 (1.5x) over 10 frames after `announce_max_scale(1.5)`
-   with no regrow after its two warm-up frames.
+   with no regrow after its two warm-up frames;
+18. the SVG front end: (a) `scenes.paris30k_svg_text(1920, 1080)` parsed
+   by `demos.svg.Svg` and composed (the text, parse and compose seconds
+   on a line of their own), K4, K2 and K3 `fold` on the parsed frame's
+   own inputs against their plain versions as in phase 3, the frame
+   through `Renderer.render` as in phase 5 (counters reset, warm-up + 5
+   timed frames, each kernel launched; within 1/255 of the plain path on
+   the card) and within 3/255 of phase 5's directly built paris-30k frame
+   (the fills pass through 8-bit hex); (d) `Renderer.profile_frame` on
+   the parsed frame, its `Timings` line (every stage finite and > 0,
+   `k_active` the frame's DIAG_K, the stages' sum within 2x of
+   `fused_frame`); (b) 3 pans (`compose(pan_x=2 i)`) through `render_into`
+   with a damage cache: the segment buffer's version unchanged, each
+   frame equal to a fresh render, damaged tiles and bytes read back per
+   frame, the pan's host seconds apart from the render's; (c) the SVG
+   sample document (`scenes.SVG_SAMPLE`, 64x64: gradients, groups, arcs,
+   `mix-blend-mode: multiply`): K3 `fold_styled` on its inputs against its
+   plain version, its frame and circles-64 at 256x256 against the port's
+   numpy oracle (`backend_numpy`, max channel diff <= 1); (e) the demo CLI
+   in-process, `gpu svg FILE` at 1920x1080 (3 frames, `--timings`,
+   `--no-save`) and `oracle circles 16` at 64x64.
 
 The last three lines are a JSON object with per-kernel results (K1 on the
 7680x4320 two-key frame; K3 once per specialisation, solid, styled,
 textured, clip, and `fold` again on the 7680x4320 two-key frame, then
 `fold_styled` on phase 15's cropped frame (row_lo 20) and `fold` on a
-phase 16 spaceship frame (its unchanged tiles skipped); K5 in its
-atlas_rowsel mode; K8 `full`; K9 `independent`; each entry names its
-frame), the card's name and power limit, and the status line
+phase 16 spaceship frame (its unchanged tiles skipped); K4, K2 and K3
+`fold` again on phase 18's parsed paris frame and `fold_styled` on the SVG
+sample; K5 in its atlas_rowsel mode; K8 `full`; K9 `independent`; each
+entry names its frame), the card's name and power limit, and the status line
 `{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py --fold-timing DIR [DIR ...] [--scene paris|styled|textured|mix]
@@ -219,6 +240,16 @@ KERNELS = (
      "(row_lo 20)"),
     ("fold", "forma_tpu_torch/csrc/fold.cu", K3, "spaceship", "fold_spaceship",
      "spaceship 1920x1080, damage-cached (unchanged tiles skipped)"),
+    ("rasterize", "forma_tpu_torch/csrc/rasterize.cu",
+     "forma_tpu/ops/expand_pallas.py:356", "svg", "rasterize_svg",
+     "paris-30k parsed from SVG 1920x1080"),
+    ("grid", "forma_tpu_torch/csrc/grid.cu",
+     "forma_tpu/ops/grid_pallas.py:314", "svg", "grid_svg",
+     "paris-30k parsed from SVG 1920x1080"),
+    ("fold", "forma_tpu_torch/csrc/fold.cu", K3, "svg", "fold_svg",
+     "paris-30k parsed from SVG 1920x1080"),
+    ("fold_styled", "forma_tpu_torch/csrc/fold.cu", K3, "svgdoc", "fold_styled_svg",
+     "the SVG sample document 64x64"),
     ("texture_probe", "forma_tpu_torch/csrc/texture_probe.cu",
      "tools/texture_fold_probe.py:157", "probe", "texture_probe", "the probe's paris shape"),
     ("fold_ablate", "forma_tpu_torch/csrc/fold_ablate.cu",
@@ -240,6 +271,8 @@ PATHS = {
     "wide": ("expand", "grid", "fold"),  # the two-key route: K1, never K4
     "crop": ("rasterize", "grid", "fold_styled"),
     "spaceship": ("rasterize", "grid", "fold"),
+    "svg": ("rasterize", "grid", "fold"),
+    "svgdoc": ("rasterize", "grid", "fold_styled"),
 }
 PARIS_W, PARIS_H = 1920, 1080
 MIX_W, MIX_H = 512, 512
@@ -1591,6 +1624,159 @@ def animation_phase(device, paris) -> dict:
     return out
 
 
+SVG_PANS = 3  # phase 18 (b)
+
+
+def svg_phase(device, card: str, direct) -> tuple:
+    """Phase 18: the SVG front end.  paris-30k as SVG text at 1920x1080,
+    parsed and composed; K4, K2 and K3 on the parsed frame's inputs; the
+    frame through the main path against the plain path and against
+    `direct` (phase 5's frame of the directly built scene);
+    `profile_frame`; pans through the damage cache; the SVG sample's
+    `fold_styled` and frame, and circles, against the port's numpy
+    oracle; the demo CLI on `gpu` and `oracle`.  Returns ({result key:
+    numbers}, {path: launches}); the parsed frame's ms and `Timings` are
+    under "frame_ms" and "timings"."""
+    import tempfile
+
+    from forma_tpu_torch import Buffer, Color, Composition, LinearLayout, Renderer
+    from forma_tpu_torch.backend_numpy import render as oracle_render
+    from forma_tpu_torch.demos import main as demo_main
+    from forma_tpu_torch.demos import scenes
+    from forma_tpu_torch.demos.svg import Svg
+    from forma_tpu_torch.ops import grid_kernel as gk
+    from forma_tpu_torch.ops import pipeline as pipe
+    from forma_tpu_torch.ops import rasterize_kernel as rk
+    from forma_tpu_torch.profiling import timings_line
+
+    w, h = PARIS_W, PARIS_H
+    clear = Color(1.0, 1.0, 1.0, 1.0)
+    out, launches = {}, {}
+
+    # (a) parse and render
+    t = time.perf_counter()
+    text = scenes.paris30k_svg_text(w, h)
+    text_s = time.perf_counter() - t
+    t = time.perf_counter()
+    svg = Svg(text)
+    parse_s = time.perf_counter() - t
+    t = time.perf_counter()
+    comp = Composition()
+    svg.compose(comp)
+    compose_s = time.perf_counter() - t
+    say("svg", question="what the front end costs on the host", text_bytes=len(text),
+        paths=text.count("<path"), layers=len(comp.layers), text_s=f"{text_s:.3f}",
+        parse_s=f"{parse_s:.3f}", compose_s=f"{compose_s:.3f}")
+    r = Renderer(device)
+    taps = {}
+    r.render_device(comp, w, h, clear, taps=taps)
+    torch.cuda.synchronize()
+    say("svg", caps=tuple(r._caps), features=str(taps["fold"][12]).replace(" ", ""))
+    out["rasterize_svg"] = check_kernel("rasterize", rk.rasterize_blocks,
+                                        rk.rasterize_blocks_torch, taps["rasterize"],
+                                        frame="paris-svg")
+    out["grid_svg"] = check_kernel("grid", gk.grid_build, gk.grid_build_torch, taps["grid"],
+                                   frame="paris-svg")
+    out["fold_svg"] = check_fold("fold", taps["fold"], frame="paris-svg")
+    del taps
+    ref, _ = r.render_device(comp, w, h, clear, plain=True)
+    ref = ref[:h, :w].cpu().numpy()
+    launches["svg"] = frame_path("svg", "svg", r, comp, (w, h), ref)
+    frame_ms = [timed(lambda: r.render(comp, w, h, clear)) for _ in range(5)]
+    img = r.render(comp, w, h, clear)
+    diff = np.abs(img.astype(int) - direct.astype(int))
+    say("svg", card=repr(card), **spread("frame_ms", frame_ms),
+        max_diff_vs_direct=int(diff.max()),
+        differing_pixels_vs_direct=int((diff > 0).any(axis=-1).sum()))
+    out["frame_ms"] = statistics.median(frame_ms)
+    if diff.max() > 3:
+        raise AssertionError(f"svg: the parsed frame is {diff.max()}/255 from the direct "
+                             "scene's (> 3)")
+
+    # (d) profiling
+    tm = r.profile_frame(comp, w, h, clear)
+    stages = sum(tm[:7])
+    say("svg", timings=repr(timings_line(tm)), card=repr(card),
+        **{f: f"{v:.3f}" if isinstance(v, float) else v for f, v in tm._asdict().items()},
+        stage_sum_ms=f"{stages:.3f}", diag_k=int(r.last_diag[pipe.DIAG_K]))
+    out["timings"] = tm
+    if (not all(math.isfinite(v) and v > 0 for v in tm[:9])
+            or tm.k_active != int(r.last_diag[pipe.DIAG_K])
+            or not 0.5 * tm.fused_frame <= stages <= 2.0 * tm.fused_frame):
+        raise AssertionError(f"svg: incomplete Timings {tm}")
+
+    # (b) pans through the damage cache
+    backing = np.zeros((h, w * 4), np.uint8)
+    buf = Buffer(buffer=backing, layout=LinearLayout(w, w * 4, h),
+                 layer_cache=r.create_buffer_layer_cache())
+    r.render_into(comp, buf, clear)
+    version = comp.shared_segment_buffer().version
+    fresh = Renderer(device)
+    pans = []
+    for i in range(1, SVG_PANS + 1):
+        t = time.perf_counter()
+        svg.compose(comp, pan_x=2.0 * i)
+        pan_s = time.perf_counter() - t
+        b0 = r.readback_bytes
+        ms = timed(lambda: r.render_into(comp, buf, clear))
+        same = np.array_equal(backing.reshape(h, w, 4), fresh.render(comp, w, h, clear))
+        pans.append((pan_s, ms, int(r.last_diag[pipe.DIAG_DMG]), r.readback_bytes - b0, same))
+        say("svg", pan=i, pan_x=2.0 * i, pan_host_s=f"{pan_s:.3f}", render_into_ms=f"{ms:.3f}",
+            damaged_tiles=pans[-1][2], readback_bytes=pans[-1][3],
+            version_kept=comp.shared_segment_buffer().version == version,
+            equals_fresh=same)
+    if comp.shared_segment_buffer().version != version or not all(p[4] for p in pans):
+        raise AssertionError("svg pans: the segment buffer's version changed or a frame "
+                             "differs from a fresh render")
+    del r, fresh, buf, backing, comp, svg, text
+
+    # (c) the SVG sample's styled fold, and frames against the oracle
+    doc = Composition()
+    Svg(scenes.SVG_SAMPLE).compose(doc)
+    rd = Renderer(device)
+    taps = {}
+    rd.render_device(doc, 64, 64, clear, taps=taps)
+    out["fold_styled_svg"] = check_fold("fold_styled", taps["fold"], frame="svg-sample")
+    del taps
+    launches["svgdoc"] = {}
+    got = count_launches(launches["svgdoc"], lambda: rd.render(doc, 64, 64, clear))
+    circles = Composition()
+    scenes.circles(circles, 64, 256, 256)
+    for label, comp, n, got in (
+        ("svg-sample", doc, 64, got),
+        ("circles-64", circles, 256, Renderer(device).render(circles, 256, 256, clear)),
+    ):
+        want = oracle_render(comp, n, n, clear_color=clear)
+        d = int(np.abs(got.astype(int) - want.astype(int)).max())
+        say("svg", frame=label, size=f"{n}x{n}", max_diff_vs_oracle=d)
+        if d > 1:
+            raise AssertionError(f"svg: {label} is {d}/255 from the numpy oracle (> 1)")
+    for name in PATHS["svgdoc"]:
+        if launches["svgdoc"].get(name, 0) < 1:
+            raise AssertionError(f"svg-sample: {name} was never launched")
+
+    # (e) the demo CLI in-process
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "paris-30k.svg")
+        with open(path, "w") as f:
+            f.write(scenes.paris30k_svg_text(w, h))
+        cli = {}
+        t = time.perf_counter()
+        count_launches(cli, lambda: demo_main.main(
+            ["gpu", "svg", path, "--width", str(w), "--height", str(h), "--frames", "3",
+             "--timings", "--no-save"]))
+        gpu_s = time.perf_counter() - t
+    t = time.perf_counter()
+    demo_main.main(["oracle", "circles", "16", "--width", "64", "--height", "64",
+                    "--no-save"])
+    say("svg", cli_gpu_svg_s=f"{gpu_s:.1f}", cli_gpu_launches=cli,
+        cli_oracle_circles_s=f"{time.perf_counter() - t:.1f}")
+    for name in PATHS["svg"]:
+        if cli.get(name, 0) < 1:
+            raise AssertionError(f"svg CLI: {name} was never launched")
+    return out, launches
+
+
 def u32_values(packed, payload) -> tuple:
     """K4's output as int64 u32 values, whichever layout a port stores:
     int32 words (the key sentinel 0x7FFFFFFF mapped to 0xFFFFFFFF, the
@@ -1944,6 +2130,7 @@ def main() -> int:
         path: frame_path("paris", path, rr, paris, (PARIS_W, PARIS_H), ref)
         for path, rr in renderers.items()
     }
+    direct = r.render(paris, PARIS_W, PARIS_H, clear)  # phase 18's reference
     del renderers, ref
 
     # 6. paris-30k-styled; 7. the styled mix
@@ -1987,6 +2174,16 @@ def main() -> int:
     kres["fold_spaceship"], launches["spaceship"], ship = spaceship_phase(device)
     anim = animation_phase(device, paris)
     del paris
+
+    # 18. the SVG front end
+    svg, svg_launches = svg_phase(device, card, direct)
+    launches.update(svg_launches)
+    tm = svg.pop("timings")
+    say("svg", question="what the parsed paris frame costs on the card", card=repr(card),
+        frame_ms_median=f"{svg.pop('frame_ms'):.3f}", fused_frame_ms=f"{tm.fused_frame:.3f}",
+        k_active=tm.k_active)
+    kres.update(svg)
+    del direct
     say("incremental", question="what the incremental paths cost on the card", card=repr(card),
         spaceship_sync_ms=f"{ship['sync_ms']:.3f}",
         spaceship_pipelined_ms=f"{ship['pipelined_ms']:.3f}",

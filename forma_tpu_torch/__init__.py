@@ -24,7 +24,11 @@ is none; only an explicit `Renderer("cpu")` runs on the CPU.  Tensors on a
 CUDA device run the kernels; tensors on the CPU run each kernel's plain
 PyTorch version.  `Renderer(expand="fused")` (the default) rasterizes
 through the fused expand + emit kernel, `expand="split"` through the
-expand kernel and the PyTorch emit.
+expand kernel and the PyTorch emit.  `Renderer.profile_frame` times one
+frame stage by stage (`Timings`).
+
+Also: `demos.svg` (the SVG front end), `backend_numpy` (the plain numpy
+oracle) and the demo CLI, `python -m forma_tpu_torch.demos.main`.
 """
 
 from .buffer import (  # noqa: F401
@@ -47,6 +51,7 @@ from .composition import Composition, GeomId, Layer, Order, OrderError  # noqa: 
 from .math import AffineTransform, GeomPresTransform, Point  # noqa: F401
 from .ops.pipeline import Caps  # noqa: F401
 from .path import Path, PathBuilder  # noqa: F401
+from .profiling import Timings  # noqa: F401
 from .renderer import Renderer  # noqa: F401
 from .styling import (  # noqa: F401
     BlendMode,

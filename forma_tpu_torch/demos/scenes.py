@@ -1,11 +1,13 @@
 """Procedural demo/benchmark scenes.
 
-A copy of the parts of `forma_tpu/demos/scenes.py` that the port's smoke
-test and tests use: `circles`, `paris30k`, `paris30k_styled` and
-`paris30k_textured`, with the same seeds, so both packages build the same
-scenes; and the port's own seeded mixes: `styled_mix`, every paint
-feature but textures, and `textured_mix`, texture fills among all the
-others.
+A copy of `forma_tpu/demos/scenes.py`: `circles`, `paris30k`,
+`paris30k_styled`, `paris30k_textured` and `paris30k_svg_text`, with the
+same seeds, so both packages build the same scenes (and the same SVG text,
+byte for byte); and the port's own: the seeded mixes `styled_mix`, every
+paint feature but textures, and `textured_mix`, texture fills among all
+the others, and `SVG_SAMPLE`, a small SVG document that takes every part
+of the parser's paint (groups, gradients, arcs, fill rules, a blend
+mode).
 
 `circles` mirrors the reference demo (`demo/src/demos/circles.rs`): N random
 translucent circles built from rational quads.
@@ -157,6 +159,67 @@ def paris30k(
             Props(func=Func.Draw(Style(fill=Fill.Solid(color))))
         )
 
+
+def _srgb8(v: float) -> int:
+    """Linear [0,1] -> sRGB byte (inverse of svg.srgb_to_linear_color)."""
+    v = min(max(float(v), 0.0), 1.0)
+    s = 12.92 * v if v <= 0.0031308 else 1.055 * v ** (1.0 / 2.4) - 0.055
+    return int(round(s * 255.0))
+
+
+def paris30k_svg_text(
+    width: int = 1920, height: int = 1080, paths: int = 30000, seed: int = 30
+) -> str:
+    """The paris30k scene as an SVG document string.
+
+    Parsed back through `demos.svg.Svg`, this exercises the full SVG
+    parser at benchmark scale end to end (reference analog: the svg demo
+    loading paris-30k.svg, `demo/src/demos/svg.rs:870-878`; the asset
+    itself is not distributed — see BASELINE.md).  Colors round-trip
+    linear -> sRGB hex -> linear, so a parsed render differs from the
+    direct scene only by 8-bit color quantization (~1/255)."""
+    out = [
+        f'<svg xmlns="http://www.w3.org/2000/svg" '
+        f'width="{width}" height="{height}">'
+    ]
+    for it in _paris30k_items(width, height, paths, seed):
+        c = it[3]
+        fill = f"#{_srgb8(c.r):02x}{_srgb8(c.g):02x}{_srgb8(c.b):02x}"
+        if it[0] == "poly":
+            xs, ys = it[1], it[2]
+            d = f"M{xs[0]:.6f},{ys[0]:.6f}" + "".join(
+                f"L{x:.6f},{y:.6f}" for x, y in zip(xs[1:], ys[1:])
+            )
+        else:
+            sx, sy = it[1]
+            d = f"M{sx:.6f},{sy:.6f}" + "".join(
+                f"Q{cpx:.6f},{cpy:.6f} {ex:.6f},{ey:.6f}"
+                for (cpx, cpy), (ex, ey) in it[2]
+            )
+        op = f' fill-opacity="{c.a:.6f}"' if c.a != 1.0 else ""
+        out.append(f'<path d="{d}" fill="{fill}"{op}/>')
+    out.append("</svg>")
+    return "\n".join(out)
+
+
+# A 64x64 document that takes every part of the parser's paint: a rect, a
+# group with a fill and an opacity, quads (q, t), an arc circle filled
+# with a user-space linear gradient, and an even-odd cubic (C, S) under
+# `mix-blend-mode: multiply`.
+SVG_SAMPLE = """<svg xmlns="http://www.w3.org/2000/svg" width="64" height="64">
+<rect x="4" y="4" width="56" height="56" fill="#e0e0ff"/>
+<g fill="red" opacity="0.8">
+  <path d="M 10 10 L 30 10 L 30 30 Z"/>
+  <path d="M 35 35 q 10 -20 20 0 t -5 15 z" fill="#00aa44"/>
+</g>
+<linearGradient id="lg" gradientUnits="userSpaceOnUse" x1="0" y1="40" x2="64" y2="40">
+  <stop offset="0%" stop-color="blue"/>
+  <stop offset="100%" stop-color="yellow"/>
+</linearGradient>
+<path d="M 8 44 a 10 10 0 1 0 20 0 a 10 10 0 1 0 -20 0" fill="url(#lg)"/>
+<path d="M 40 50 C 45 40 55 40 60 50 S 50 62 40 50" fill="purple"
+      fill-rule="evenodd" style="mix-blend-mode: multiply"/>
+</svg>"""
 
 def paris30k_styled(
     composition: Composition,

@@ -1,14 +1,16 @@
 """Where the time of a paris-30k frame goes on the card, stage by stage.
 
-    python -m forma_tpu_torch.profile_stages [--scene paris|styled|textured] [--frames 3]
+    python -m forma_tpu_torch.profile_stages [--scene paris|styled|textured|svg] [--frames 3]
         [--width 1920] [--height 1080]
 
 Renders paris-30k at `--width` x `--height`, 1920x1080 by default
 (`--scene paris`, `demos.scenes.paris30k`, solid fills; `--scene styled`,
 `demos.scenes.paris30k_styled`, gradient fills and Screen-blended roads;
-or `--scene textured`, `demos.scenes.paris30k_textured`, buildings filled
-from a texture atlas) through `Renderer.render` on each expand path
-("fused" and "split") and prints, per path:
+`--scene textured`, `demos.scenes.paris30k_textured`, buildings filled
+from a texture atlas; or `--scene svg`, paris-30k written as SVG text by
+`demos.scenes.paris30k_svg_text` and parsed by `demos.svg.Svg`) through
+`Renderer.render` on each expand path ("fused" and "split") and prints,
+per path:
 
 1. the unfenced frame time (host clock around `render`, which returns the
    frame on the host), median / min / max over `--frames` frames after
@@ -32,73 +34,41 @@ from __future__ import annotations
 import argparse
 import statistics
 import time
-from collections import defaultdict
 
 import torch
 
 from . import Color, Composition, Renderer
 from .demos import scenes
-from .ops import fold_kernel, pipeline, rasterize, runs
+from .demos.svg import Svg
+from .ops import pipeline, rasterize
+from .profiling import STAGES, fenced_stages, timings_line
 
+
+def _parsed_paris(comp, width, height):
+    Svg(scenes.paris30k_svg_text(width, height)).compose(comp)
+
+
+CLEAR = Color(1.0, 1.0, 1.0, 1.0)
 SCENES = {"paris": scenes.paris30k, "styled": scenes.paris30k_styled,
-          "textured": scenes.paris30k_textured}
-# (module, attribute, row label, nesting depth) in frame order.
-STAGES = (
-    (pipeline._ls, "line_setup", "line_setup", 0),
-    (pipeline._raster, "rasterize_sort", "rasterize_sort (expand, emit, sort, unpack)", 0),
-    (rasterize, "rasterize_blocks", "K4 rasterize_blocks (fused expand + emit)", 1),
-    (rasterize, "expand_params", "K1 expand_params", 1),
-    (rasterize, "_emit_packed", "ff64 emit in PyTorch", 1),
-    (rasterize, "_emit_two_key", "ff64 two-key emit in PyTorch", 1),
-    (rasterize, "sort_two_key", "two-key int64 sort", 1),
-    (pipeline._runs, "extract_runs", "extract_runs", 0),
-    (pipeline._runs, "run_data", "run_data", 0),
-    (runs, "grid_build", "K2 grid_build", 1),
-    (pipeline._runs, "build_units", "build_units", 0),
-    (pipeline._paint, "cull_units_keep", "cull_units_keep", 0),
-    (pipeline._paint, "_renumber_units", "_renumber_units", 0),
-    (pipeline._paint, "paint", "paint", 0),
-    (fold_kernel, "paint_fold", "K3 paint_fold", 1),
-    (pipeline._srgb, "pack_srgb", "pack_srgb", 0),
-)
-
-
-def _fenced(fn, times):
-    def wrapper(*args, **kwargs):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn(*args, **kwargs)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-        return out
-
-    return wrapper
+          "textured": scenes.paris30k_textured, "svg": _parsed_paris}
 
 
 def _frames(r, comp, n, size):
-    clear = Color(1.0, 1.0, 1.0, 1.0)
     times = []
     for _ in range(n):
         t = time.perf_counter()
-        r.render(comp, *size, clear)
+        r.render(comp, *size, CLEAR)
         times.append((time.perf_counter() - t) * 1e3)
     return times
 
 
 def _stage_table(r, comp, n, size):
-    acc = defaultdict(list)
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in STAGES]
-    try:
-        for (mod, attr, fn), (_, _, label, _) in zip(saved, STAGES):
-            setattr(mod, attr, _fenced(fn, acc[label]))
+    with fenced_stages(r.device) as (acc, _):
         frames = _frames(r, comp, n, size)
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
     total = statistics.median(frames)
     print(f"  fenced frame: {total:.2f} ms (median of {n})")
     top = 0.0
-    for _, _, label, depth in STAGES:
+    for _, _, label, depth, _ in STAGES:
         if acc[label]:
             ms = statistics.median(acc[label])
             top += ms if depth == 0 else 0.0
@@ -153,6 +123,7 @@ def main(argv=None):
               f"diag {r.last_diag.tolist()}, peak memory "
               f"{torch.cuda.max_memory_allocated()} bytes")
         _stage_table(r, comp, args.frames, size)
+        print(f"  Renderer.profile_frame: {timings_line(r.profile_frame(comp, *size, CLEAR))}")
         _device_profile(r, comp, size)
 
 

@@ -35,6 +35,7 @@ from .composition import Composition
 from .ops import pipeline as _pipe
 from .ops import styles as _styles
 from .ops._u32 import from_numpy
+from .profiling import profile_frame as _profile_frame
 from .styling import Color
 
 
@@ -112,6 +113,7 @@ class Renderer:
         self._caps = caps if caps is not None else _pipe.Caps()
         self._cache_slots = 0  # 32-bit set of handed-out layer-cache ids
         self.last_diag: Optional[np.ndarray] = None
+        self.last_timings = None  # set by profile_frame
         self._last_dmg = None  # compact damaged-tile readback (idx, tiles)
         # `regrow_count` counts entries into the growth loop (tests assert a
         # warmed animation never re-enters it); transform churn between
@@ -126,6 +128,11 @@ class Renderer:
 
     def _tensor(self, a) -> torch.Tensor:
         return from_numpy(a, self.device)  # a copy: host arrays may change
+
+    def profile_frame(self, composition, width, height, clear_color, channels=None):
+        """Per-stage `Timings` of one frame (the `gpu::Timings` analog), each
+        stage fenced on this renderer's device; see `profiling.py`."""
+        return _profile_frame(self, composition, width, height, clear_color, channels)
 
     # -- layer caches --------------------------------------------------------
 
