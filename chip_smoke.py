@@ -159,7 +159,34 @@ failure exits non-zero:
    plain version, its frame and circles-64 at 256x256 against the port's
    numpy oracle (`backend_numpy`, max channel diff <= 1); (e) the demo CLI
    in-process, `gpu svg FILE` at 1920x1080 (3 frames, `--timings`,
-   `--no-save`) and `oracle circles 16` at 64x64.
+   `--no-save`) and `oracle circles 16` at 64x64;
+19. the multi-device frames, run right after phase 5 on its paris-30k
+   composition (phases 15 and 17 move its layers), in 4 shards that all
+   sit on the one card and run in turn (`devices=(card,) * 4`; every
+   time is labelled so: none is a scaling figure): (a) the row-sharded
+   frame (`Renderer.render_device_sharded`) and (b) the line-sharded
+   frame (`render_device_sharded_lines`), each 0 pixels off
+   `render_device` with the diag entries a max over shards keeps equal,
+   launches counted over a warm-up and 5 fenced frames (every kernel at
+   least once a shard), and K4, K2 and K3 `fold` on shard 2's own inputs
+   (K4 at rows 17, row_lo 34 on a row shard, at the frame's 68 rows from
+   row 0 on a line shard; K3 at row_lo 34) against their plain versions
+   as in phase 3; for (b) the largest exchange block against `xcap`, the
+   most segments a shard received against the frame's segments inside
+   its rows over 4, the
+   blocks' bytes a frame and the regrows; (c) ms per fenced frame
+   (median, min, max of 5 after 1 warm-up) of (a), (b), the line path at
+   one shard (its frame equal to `render_device`'s) and `render_device`,
+   with each one's peak memory, and a `torch.profiler` window of 3 frames
+   of `render_device` and of each sharded frame (wall and device ms a
+   frame, launches a frame); (d) 5 line-sharded frames with
+   `check_caps=False` under `torch.cuda.set_sync_debug_mode("warn")` (any
+   synchronising call fails), their diagnostics checked after the loop;
+   (e) on a machine with more than one card (skipped, and said so, on
+   one), one shard on each card (`devices=None`) through both entry
+   points: each shard's frame on its own card, the frames 0 pixels off
+   `render_device`'s, launches of every kernel on every shard, ms per
+   frame with every card synchronised.
 
 The last three lines are a JSON object with per-kernel results (K1 on the
 7680x4320 two-key frame; K3 once per specialisation, solid, styled,
@@ -167,9 +194,14 @@ textured, clip, and `fold` again on the 7680x4320 two-key frame, then
 `fold_styled` on phase 15's cropped frame (row_lo 20) and `fold` on a
 phase 16 spaceship frame (its unchanged tiles skipped); K4, K2 and K3
 `fold` again on phase 18's parsed paris frame and `fold_styled` on the SVG
-sample; K5 in its atlas_rowsel mode; K8 `full`; K9 `independent`; each
+sample; K4, K2 and K3 `fold` on shard 2 of phase 19's row-sharded and
+line-sharded frames; K5 in its atlas_rowsel mode; K8 `full`; K9 `independent`; each
 entry names its frame), the card's name and power limit, and the status line
 `{"ok": true, "device": {...}}`.
+
+    python3 chip_smoke.py --multi-card
+
+runs only phase 19 (e), on a machine with two cards or more.
 
     python3 chip_smoke.py --fold-timing DIR [DIR ...] [--scene paris|styled|textured|mix]
 
@@ -196,6 +228,7 @@ sort in both layouts (int32 and int64), held equal and timed alone.
 from __future__ import annotations
 
 import argparse
+import functools
 import heapq
 import importlib
 import inspect
@@ -250,6 +283,22 @@ KERNELS = (
      "paris-30k parsed from SVG 1920x1080"),
     ("fold_styled", "forma_tpu_torch/csrc/fold.cu", K3, "svgdoc", "fold_styled_svg",
      "the SVG sample document 64x64"),
+    ("rasterize", "forma_tpu_torch/csrc/rasterize.cu",
+     "forma_tpu/ops/expand_pallas.py:356", "rows", "rasterize_rows",
+     "paris row shard 2 of 4 (4 shards in turn on one card)"),
+    ("grid", "forma_tpu_torch/csrc/grid.cu",
+     "forma_tpu/ops/grid_pallas.py:314", "rows", "grid_rows",
+     "paris row shard 2 of 4 (4 shards in turn on one card)"),
+    ("fold", "forma_tpu_torch/csrc/fold.cu", K3, "rows", "fold_rows",
+     "paris row shard 2 of 4 (4 shards in turn on one card)"),
+    ("rasterize", "forma_tpu_torch/csrc/rasterize.cu",
+     "forma_tpu/ops/expand_pallas.py:356", "lines", "rasterize_lines",
+     "paris line shard 2 of 4 (4 shards in turn on one card)"),
+    ("grid", "forma_tpu_torch/csrc/grid.cu",
+     "forma_tpu/ops/grid_pallas.py:314", "lines", "grid_lines",
+     "paris line shard 2 of 4 (4 shards in turn on one card)"),
+    ("fold", "forma_tpu_torch/csrc/fold.cu", K3, "lines", "fold_lines",
+     "paris line shard 2 of 4 (4 shards in turn on one card)"),
     ("texture_probe", "forma_tpu_torch/csrc/texture_probe.cu",
      "tools/texture_fold_probe.py:157", "probe", "texture_probe", "the probe's paris shape"),
     ("fold_ablate", "forma_tpu_torch/csrc/fold_ablate.cu",
@@ -273,6 +322,8 @@ PATHS = {
     "spaceship": ("rasterize", "grid", "fold"),
     "svg": ("rasterize", "grid", "fold"),
     "svgdoc": ("rasterize", "grid", "fold_styled"),
+    "rows": ("rasterize", "grid", "fold"),  # phase 19: every shard
+    "lines": ("rasterize", "grid", "fold"),
 }
 PARIS_W, PARIS_H = 1920, 1080
 MIX_W, MIX_H = 512, 512
@@ -1625,6 +1676,11 @@ def animation_phase(device, paris) -> dict:
 
 
 SVG_PANS = 3  # phase 18 (b)
+# Phase 19: paris-30k in SHARDS shards, all on the one card, in turn; the
+# kernels are checked on shard SHARD's own inputs.
+SHARDS, SHARD = 4, 2
+SHARD_LABEL = "4 shards in turn on one card"
+SHARDED = {"rows": "render_device_sharded", "lines": "render_device_sharded_lines"}
 
 
 def svg_phase(device, card: str, direct) -> tuple:
@@ -1775,6 +1831,217 @@ def svg_phase(device, card: str, direct) -> tuple:
         if cli.get(name, 0) < 1:
             raise AssertionError(f"svg CLI: {name} was never launched")
     return out, launches
+
+
+def fenced_ms(fn, n: int = 5) -> list:
+    """Host milliseconds of each of n calls of `fn()`, each ended by
+    `torch.cuda.synchronize()`, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def sharded_phase(device, card: str, paris) -> tuple:
+    """Phase 19: paris-30k at 1920x1080 (`paris`, phase 5's composition) in
+    SHARDS shards, all on `device` (SHARD_LABEL).  (a) The row-sharded and
+    (b) the line-sharded frame: 0 pixels off `render_device`'s, the diag
+    equal to the single frame's where the max (or, for DIAG_SEGS on the
+    line path, the sum) over the shards keeps it, launch counters reset
+    around a warm-up and 5 fenced frames, then K4, K2 and K3 `fold` on
+    shard SHARD's own inputs against their plain versions; for (b) the
+    exchange: the largest block against `xcap`, the most segments a shard
+    received against the frame's segments inside its rows over SHARDS
+    (the skew), the bytes the blocks hold a frame, the regrows.  (c) ms
+    per fenced frame of (a), (b), the line path at one shard and
+    `render_device`, with the peak memory of each, and `frame_profile`
+    over 3 frames of `render_device` and of each sharded frame.  (d) 5
+    line-sharded frames with `check_caps=False` under the sync debug mode
+    (no synchronising call allowed), their diagnostics checked after the
+    loop.  Returns ({result key: numbers}, {path: launches})."""
+    from forma_tpu_torch import Color, Renderer
+    from forma_tpu_torch.ops import _build
+    from forma_tpu_torch.ops import grid_kernel as gk
+    from forma_tpu_torch.ops import pipeline as pipe
+    from forma_tpu_torch.ops import rasterize_kernel as rk
+
+    w, h = PARIS_W, PARIS_H
+    clear = Color(1.0, 1.0, 1.0, 1.0)
+    devices = (device,) * SHARDS
+    rows = -(-h // (16 * SHARDS))  # a shard's tile rows
+    row_lo = SHARD * rows
+    rs = Renderer(device)
+    t1 = {}
+    single, d1 = rs.render_device(paris, w, h, clear, taps=t1)
+    single = single[:h, :w]
+    # The segments inside the frame's rows: what the exchange moves.
+    in_frame = int((rk.rasterize_blocks_torch(*t1["rasterize"])[0] != rk.PACKED_SENTINEL).sum())
+    del t1
+    out, launches, times, memory = {}, {}, {}, {}
+
+    def measure(key, fn):
+        """(c): fenced frames of `fn`, the peak memory above the baseline."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times[key] = fenced_ms(fn)
+        memory[key] = torch.cuda.max_memory_allocated() - base
+
+    renderers, frame_fns = {}, {"single": lambda: rs.render_device(paris, w, h, clear)}
+    for path, method in SHARDED.items():
+        r = renderers[path] = Renderer(device)
+        call = getattr(r, method)
+        frame_fns[path] = functools.partial(call, paris, w, h, clear, devices=devices)
+        taps = {}
+        frames, d = call(paris, w, h, clear, devices=devices, taps=taps)
+        torch.cuda.synchronize()
+        whole = torch.cat(frames)
+        differing = int((whole[:h, :w] != single).any(-1).sum())
+        kept = [pipe.DIAG_K, pipe.DIAG_SEGS, pipe.DIAG_DMG]
+        if path == "rows":
+            kept.append(pipe.DIAG_VLINES)  # every row shard sees every line
+        say("sharded", path=path, shards=SHARDS, on=repr(SHARD_LABEL),
+            frame_shape=tuple(whole.shape), differing_pixels_vs_single=differing,
+            diag=d.tolist(), single_diag=d1.tolist(),
+            caps=tuple(r._caps if path == "rows" else r._caps_lines),
+            regrows=r.regrow_count)
+        if differing or any(d[i] != d1[i] for i in kept):
+            raise AssertionError(f"sharded {path}: {differing} pixels off render_device, or "
+                                 f"diag {d.tolist()} against {d1.tolist()} at {kept}")
+        args = taps[SHARD]
+        want = (rows, row_lo) if path == "rows" else (rows * SHARDS, 0)
+        got = (args["rasterize"][5], args["rasterize"][7])
+        if got != want or args["fold"][15] != row_lo:
+            raise AssertionError(f"sharded {path}: K4 (rows, row_lo) {got} against {want}, "
+                                 f"K3 row_lo {args['fold'][15]} against {row_lo}")
+        _build.reset_launches()
+        measure(path, frame_fns[path])
+        launches[path] = dict(_build.LAUNCHES)
+        for name in PATHS[path]:
+            if launches[path].get(name, 0) < SHARDS:
+                raise AssertionError(f"sharded {path}: {name} launched "
+                                     f"{launches[path].get(name, 0)} times")
+        frame = f"paris-{path}-shard{SHARD}of{SHARDS}"
+        out[f"rasterize_{path}"] = check_kernel(
+            "rasterize", rk.rasterize_blocks, rk.rasterize_blocks_torch, args["rasterize"],
+            frame=frame, rows=got[0], row_lo=got[1])
+        out[f"grid_{path}"] = check_kernel("grid", gk.grid_build, gk.grid_build_torch,
+                                           args["grid"], frame=frame)
+        out[f"fold_{path}"] = check_fold("fold", args["fold"], frame=frame, row_lo=row_lo)
+        if path == "lines":
+            xcap = min(r._xcap, r._caps_lines.vline * pipe.K_SEG)
+            ideal = in_frame / SHARDS
+            say("sharded", path=path, xpair=int(d[pipe.DIAG_XPAIR]), xcap=xcap,
+                in_frame_segments=in_frame, xrecv=int(d[pipe.DIAG_XRECV]),
+                ideal_recv=f"{ideal:.1f}",
+                skew=f"{d[pipe.DIAG_XRECV] / ideal:.4f}",
+                exchange_bytes_per_frame=SHARDS ** 2 * xcap * 8, regrows=r.regrow_count)
+        del taps, args, frames, whole
+
+    # (c) the line path at one shard, and the single frame, in the same call
+    r1 = Renderer(device)
+    one, _ = r1.render_device_sharded_lines(paris, w, h, clear, devices=(device,))
+    same = bool(torch.equal(one[0][:h, :w], single))
+    measure("lines_n1", lambda: r1.render_device_sharded_lines(paris, w, h, clear,
+                                                                devices=(device,)))
+    measure("single", frame_fns["single"])
+    say("sharded", question="what the sharded frames cost", on=repr(SHARD_LABEL),
+        card=repr(card), lines_n1_equals_single=same,
+        **{k: v for key, ms in times.items() for k, v in spread(f"{key}_ms", ms).items()},
+        **{f"{key}_peak_memory": v for key, v in memory.items()},
+        exchange_overhead_ms=f"{statistics.median(times['lines_n1']) - statistics.median(times['single']):.3f}")
+    if not same:
+        raise AssertionError("sharded lines at one shard: the frame differs from render_device")
+    for key, fn in frame_fns.items():
+        say("sharded", profile=key, on=repr(SHARD_LABEL), **frame_profile(fn, 3))
+
+    # (d) no synchronising call with check_caps=False
+    r = renderers["lines"]
+    caps, xcap, diags = r._caps_lines, r._xcap, []
+
+    def loop():
+        for _ in range(5):
+            diags.append(r.render_device_sharded_lines(paris, w, h, clear, devices=devices,
+                                                       check_caps=False)[1])
+
+    syncs = syncs_during(loop)
+    torch.cuda.synchronize()
+    dd = torch.stack(diags).cpu().numpy()
+    overflow = [i for i, di in enumerate(dd)
+                if not r._fits(di, caps) or di[pipe.DIAG_XPAIR] > xcap]
+    say("sharded", path="lines", check_caps=False, frames=len(diags),
+        syncs=sum(syncs.values()), sync_sites=syncs, overflowed_frames=overflow,
+        diag_last=dd[-1].tolist())
+    if syncs or overflow:
+        raise AssertionError(f"sharded lines, check_caps=False: synchronising calls {syncs} "
+                             f"or overflowed frames {overflow}")
+    return out, launches
+
+
+def distinct_cards(paris, card: str) -> None:
+    """Phase 19 (e): on a machine with more than one card, paris-30k at
+    1920x1080 (`paris`) in one shard per card (`devices=None`) through
+    both sharded entry points: every shard's frame on its own card, the
+    frames moved to card 0 0 pixels off `render_device`'s, the diag
+    entries a max over shards keeps equal, every kernel of the path
+    launched at least once a shard over a warm-up and 5 fenced frames
+    (each fenced by a synchronize of every card), and ms per frame
+    beside `render_device` on card 0.  With one card it says so and
+    checks nothing."""
+    from forma_tpu_torch import Color, Renderer
+    from forma_tpu_torch.ops import _build
+    from forma_tpu_torch.ops import pipeline as pipe
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        say("sharded", distinct_cards="skipped: this machine has one card")
+        return
+    w, h = PARIS_W, PARIS_H
+    clear = Color(1.0, 1.0, 1.0, 1.0)
+    label = f"{n} shards on {n} cards, one a card"
+
+    def fenced(fn):
+        def call():
+            fn()
+            for i in range(n):
+                torch.cuda.synchronize(i)
+        return fenced_ms(call)
+
+    rs = Renderer("cuda:0")
+    single, d1 = rs.render_device(paris, w, h, clear)
+    single = single[:h, :w]
+    times = {"single": fenced(lambda: rs.render_device(paris, w, h, clear))}
+    for path, method in SHARDED.items():
+        r = Renderer("cuda:0")
+        call = functools.partial(getattr(r, method), paris, w, h, clear)
+        frames, d = call()
+        placed = [str(f.device) for f in frames]
+        whole = torch.cat([f.to("cuda:0") for f in frames])
+        differing = int((whole[:h, :w] != single).any(-1).sum())
+        kept = [pipe.DIAG_K, pipe.DIAG_SEGS, pipe.DIAG_DMG]
+        if path == "rows":
+            kept.append(pipe.DIAG_VLINES)
+        _build.reset_launches()
+        times[path] = fenced(call)
+        launches = dict(_build.LAUNCHES)
+        say("sharded", path=path, on=repr(label), card=repr(card), shards_on=placed,
+            differing_pixels_vs_single=differing, diag=d.tolist(), single_diag=d1.tolist(),
+            launches={k: v for k, v in launches.items() if v},
+            regrows=r.regrow_count, **spread(f"{path}_ms", times[path]),
+            **spread("single_ms", times["single"]))
+        if (placed != [f"cuda:{i}" for i in range(n)] or differing
+                or any(d[i] != d1[i] for i in kept)
+                or any(launches.get(k, 0) < 6 * n for k in PATHS[path])):
+            raise AssertionError(
+                f"sharded {path} on {n} cards: shards on {placed}, {differing} pixels off "
+                f"render_device, diag {d.tolist()} against {d1.tolist()} at {kept}, "
+                f"launches {launches}")
+        del frames, whole
 
 
 def u32_values(packed, payload) -> tuple:
@@ -2058,6 +2325,9 @@ def main() -> int:
     ap.add_argument("--raster-timing", metavar="DIR", nargs="+",
                     help="time K4 and the segment sort alone with the port of the "
                          "checkout in each DIR")
+    ap.add_argument("--multi-card", action="store_true",
+                    help="run only phase 19 (e), the sharded frames with one shard on "
+                         "each card (needs two cards or more)")
     ap.add_argument("--scene", choices=sorted(PARIS_SCENES) + ["mix"], default="paris",
                     help="the frame whose inputs --fold-timing or --raster-timing uses")
     opts = ap.parse_args()
@@ -2076,6 +2346,15 @@ def main() -> int:
 
     # 1. device record
     card = gpu_record()
+    if opts.multi_card:
+        if torch.cuda.device_count() < 2:
+            print("chip_smoke: --multi-card needs two cards or more", file=sys.stderr)
+            return 2
+        paris = Composition()
+        scenes.paris30k(paris, PARIS_W, PARIS_H)
+        distinct_cards(paris, card)
+        print(card)
+        return 0
     try:
         import triton
 
@@ -2132,6 +2411,13 @@ def main() -> int:
     }
     direct = r.render(paris, PARIS_W, PARIS_H, clear)  # phase 18's reference
     del renderers, ref
+
+    # 19. the multi-device frames, run here while paris is as phase 5 composed
+    # it (phases 15 and 17 move its layers)
+    sharded, sharded_launches = sharded_phase(device, card, paris)
+    launches.update(sharded_launches)
+    kres.update(sharded)
+    distinct_cards(paris, card)
 
     # 6. paris-30k-styled; 7. the styled mix
     comps = {}

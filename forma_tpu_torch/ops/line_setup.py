@@ -1,10 +1,11 @@
 """Device line setup: point chains -> per-line rasterization coefficients.
 
-Counterpart of `forma_tpu/ops/line_setup.py:37-194` (`line_setup`): one
-elementwise pass over the line arrays (per-geometry gather, affine
-transform, cull, grid-crossing coefficients, Manhattan lengths, ff64
-progression constants), packed into ONE [L, 16] f32 matrix, followed by
-the inclusive cumsum of per-line virtual-line counts.
+Counterpart of `forma_tpu/ops/line_setup.py:37-194` (`line_setup` and
+`line_setup_pairs`): one elementwise pass over the line arrays
+(per-geometry gather, affine transform, cull, grid-crossing
+coefficients, Manhattan lengths, ff64 progression constants), packed
+into ONE [L, 16] f32 matrix, followed by the inclusive cumsum of
+per-line virtual-line counts.
 """
 
 from __future__ import annotations
@@ -38,8 +39,30 @@ def line_setup(
     """Returns (params f32 [L, 16], slots i32 [L], lengths i32 [L],
     vline_ends int64 [L] (u32 values) inclusive cumsum of per-line
     virtual-line counts)."""
-    p0x, p0y, p1x, p1y = px[:-1], py[:-1], px[1:], py[1:]
+    return line_setup_pairs(
+        px[:-1], py[:-1], px[1:], py[1:], line_slot,
+        g_slot, g_valid, g_t, g_has_t, width, height, k_seg,
+    )
 
+
+def line_setup_pairs(
+    p0x: torch.Tensor,  # f32 [L] line start x
+    p0y: torch.Tensor,  # f32 [L] line start y
+    p1x: torch.Tensor,  # f32 [L] line end x
+    p1y: torch.Tensor,  # f32 [L] line end y
+    line_slot: torch.Tensor,  # i32 [L] index into geometry tables, -1 = no line
+    g_slot: torch.Tensor,
+    g_valid: torch.Tensor,
+    g_t: torch.Tensor,
+    g_has_t: torch.Tensor,
+    width: int,
+    height: int,
+    k_seg: int = 8,
+):
+    """`line_setup` on explicit endpoint pairs instead of a point chain
+    (`forma_tpu/ops/line_setup.py:57`): the line-sharded path permutes
+    lines round-robin across shards, which breaks the chain's adjacency,
+    so each shard takes its own (p0, p1) pairs."""
     gi = torch.clamp(line_slot, min=0).long()
     gmat = torch.cat(
         [

@@ -16,8 +16,13 @@ the runs re-sorted into carry-chain order, and K3 reading each unit's
 grid row by `src_u`), as the JAX package routes them
 (`forma_tpu/ops/pipeline.py:98-110,123,147`).  A row-span crop renders
 tile rows [row_lo, row_lo + rows): the rasterizer shifts them to the
-frame's rows, and K3 evaluates fills at the global rows.  Nothing here
-reads a device value on the host.
+frame's rows, and K3 evaluates fills at the global rows.
+
+`render_frame_sharded` and `render_frame_sharded_lines` are the two
+multi-device frames over a `mesh.Mesh` (`forma_tpu/ops/pipeline.py:
+377-566`), in the JAX package's single-controller form: one call drives
+every shard on its device.  Nothing here reads a device value on the
+host.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from . import runs as _runs
 from . import srgb as _srgb
 from ._u32 import from_numpy
 from .paint import Features
+from .rasterize_kernel import PACKED_SENTINEL, ZERO_PAYLOAD
 
 K_SEG = 8  # pixel segments per virtual line
 
@@ -50,6 +56,11 @@ class Caps(NamedTuple):
 # Indices into the diagnostics vector.  DIAG_DMG (the number of changed
 # tiles) is meaningful only for cached frames; it reads 0 elsewhere.
 DIAG_VLINES, DIAG_RUNS, DIAG_VIRT, DIAG_K, DIAG_SEGS, DIAG_DMG = range(6)
+# The line-sharded frame's two more entries: the largest block one shard
+# addressed to one destination (against the exchange capacity `xcap`), and
+# the most segments one shard received (the back half's share of the
+# work: ideally the frame's segments over the mesh size).
+DIAG_XPAIR, DIAG_XRECV = 6, 7
 
 # Static capacity of the compact damaged-tile readback (bytes per cached
 # frame at most DMG_CAP * TILE_HEIGHT * TILE_WIDTH * C).  Not a growth
@@ -319,6 +330,154 @@ def render_frame_cached(
         cache=(prev_frame, prev_counts, st_unchanged, cache_ok),
         crop_x=crop_x, crop_y=crop_y, expand=expand, plain=plain, taps=taps,
     )
+
+
+def _shard_taps(taps, i: int):
+    """Shard i's own taps dict inside `taps` (keyed by shard index)."""
+    return None if taps is None else taps.setdefault(i, {})
+
+
+def render_frame_sharded(
+    px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
+    width: int, height: int, rows: int, tiles_x: int,
+    caps: Caps, features: Features, channels, mesh,
+    expand: str = "fused", plain: bool = False, taps=None,
+):
+    """Framebuffer-sharded render over `mesh` (`forma_tpu/ops/pipeline.py:
+    377-417`): every input replicates to every shard's device, and shard i
+    runs the whole `_core` on tile rows [i * rows, (i + 1) * rows); the
+    rasterizer drops the segments outside them.  `rows` is the padded
+    per-shard tile-row count (the frame's rows over the mesh size, rounded
+    up).  Returns (the shards' u8 frames [rows*16, tiles_x*16, C], each on
+    its device; the int64 [6] diagnostics, their elementwise maximum over
+    the shards, on shard 0's device).  `torch.cat` of the frames (on one
+    device) is the JAX package's frame: its first `height` rows are the image.  `taps`
+    (a dict) receives each shard's kernel inputs under the shard's index."""
+    inputs = mesh.replicate((px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear))
+    frames, diags = [], []
+    for i, args in enumerate(inputs):
+        with mesh.on(i):
+            frame, diag = _core(
+                *args, width, height, rows, tiles_x, caps, features, channels,
+                row_lo=i * rows, expand=expand, plain=plain, taps=_shard_taps(taps, i),
+            )
+        frames.append(frame)
+        diags.append(diag)
+    return tuple(frames), mesh.pmax(diags)
+
+
+def _exchange_blocks(packed, payload, n: int, rows: int, shift: int, xcap: int):
+    """Cuts one shard's sorted segment stream into its n exchange blocks
+    (`forma_tpu/ops/pipeline.py:501-534`): block d holds the segments of
+    destination d's tile rows [d * rows, (d + 1) * rows), at most `xcap`,
+    the rest of its slots the sentinel and the zero payload.  The stream
+    is sorted by its global row field (`packed >> shift` = tile row + 1),
+    so each destination's segments are one contiguous slice, found by a
+    binary search of its first key; each block is a gather at a clamped
+    start with a keep mask, all on the device.  Returns (keys, payloads)
+    int32 [n, xcap] and the largest destination's segment count."""
+    dev = packed.device
+    d = torch.arange(n + 1, dtype=torch.int32, device=dev)
+    # Destination d's first key, and past the last destination's rows the
+    # first sentinel: (rows_total + 1) << shift lies below it.
+    edges = torch.searchsorted(packed, (d * rows + 1) << shift)
+    starts, ends = edges[:-1, None], edges[1:, None]
+    start = torch.clamp(starts, max=packed.shape[0] - xcap)
+    gidx = start + torch.arange(xcap, device=dev)
+    keep = (gidx >= starts) & (gidx < ends)
+    blk_k = torch.where(keep, packed[gidx], PACKED_SENTINEL)
+    blk_p = torch.where(keep, payload[gidx], ZERO_PAYLOAD)
+    return blk_k, blk_p, (ends - starts).max()
+
+
+def render_frame_sharded_lines(
+    p0x, p0y, p1x, p1y, line_slot,  # [L] line-endpoint pairs, shard i's the i-th L/n
+    g_slot, g_valid, g_t, g_has_t, st, clear,
+    width: int, height: int, rows: int, tiles_x: int,
+    caps: Caps, features: Features, channels, mesh,
+    xcap: int,  # per-(source, destination) exchange block capacity, a multiple of 128
+    expand: str = "fused", plain: bool = False, taps=None,
+):
+    """Line-sharded render over `mesh` (`forma_tpu/ops/pipeline.py:
+    420-566`): the lines shard as well as the frame, so line setup, the
+    expansion and emit, and the segment sort each do ~1/n of the work.
+
+    Shard i takes the i-th n-th of the pair arrays (the renderer permutes
+    them round-robin), runs line setup on its pairs and the packed emit
+    at global tile rows (`rows * n` rows from row 0), sorts locally, cuts
+    the sorted stream into one block of `xcap` slots per destination
+    shard (`_exchange_blocks`), and the blocks change places
+    (`mesh.all_to_all`).  Each shard then re-biases the rows it received
+    to its own, sorts them and runs `_back` on its tile rows [i * rows,
+    (i + 1) * rows).  Needs the packed key: raises `ValueError` where
+    [row | slot | tx] passes 31 bits at `rows * n` rows (the row-sharded
+    frame takes such scenes).  `caps` are per shard.  Returns what
+    `render_frame_sharded` returns, with the diagnostics' DIAG_SEGS the
+    sum over the shards and two more entries, DIAG_XPAIR (a block that
+    passes `xcap` drops segments, and the frame is invalid until the
+    caller grows `xcap`) and DIAG_XRECV."""
+    n = mesh.size
+    rows_total = rows * n
+    slot_bits = slot_bits_for(st["orders"].shape[0], rows_total, tiles_x)
+    if slot_bits == 0:
+        raise ValueError(
+            "the line-sharded frame needs the packed key; use render_frame_sharded"
+        )
+    tx_bits = max((tiles_x + 1).bit_length(), 1)
+    shift = slot_bits + tx_bits
+    # A shard sends no destination more than its own segment slots, which
+    # also keeps every block's start in range.
+    xcap = min(xcap, caps.vline * K_SEG)
+    if xcap % 128 or line_slot.shape[0] % n:
+        raise ValueError(f"xcap {xcap} must be a multiple of 128 and the lines "
+                         f"{line_slot.shape[0]} of the mesh size {n}")
+
+    # Front half: each shard's own lines at global tile rows.
+    own = [t.reshape(n, -1) for t in (p0x, p0y, p1x, p1y, line_slot)]
+    shared = mesh.replicate((g_slot, g_valid, g_t, g_has_t, st, clear))
+    fronts, blk_k, blk_p = [], [], []
+    for i, dev in enumerate(mesh.devices):
+        with mesh.on(i):
+            params, _, lengths, vline_ends = _ls.line_setup_pairs(
+                *(t[i].to(dev, non_blocking=True) for t in own), *shared[i][:4],
+                width, height, k_seg=K_SEG,
+            )
+            v_total = vline_ends[-1]
+            packed, payload = _raster._expand_emit_packed(
+                params, lengths, vline_ends, torch.clamp(v_total, max=caps.vline),
+                caps.vline, K_SEG, rows_total, tiles_x, 0, slot_bits, tx_bits,
+                expand=expand, plain=plain, taps=_shard_taps(taps, i),
+            )
+            # Ascending keys are ascending global rows: grouped by destination.
+            packed, order = torch.sort(packed, stable=False)
+            k, p, max_pair = _exchange_blocks(packed, payload[order], n, rows, shift, xcap)
+        blk_k.append(k)
+        blk_p.append(p)
+        fronts.append((v_total, lengths.sum(dtype=torch.int64), max_pair))
+
+    recv_k = mesh.all_to_all(blk_k)
+    recv_p = mesh.all_to_all(blk_p)
+    total_segs = mesh.psum([f[1] for f in fronts])
+
+    # Back half: each shard's received segments at its own rows.
+    frames, diags = [], []
+    for i, dev in enumerate(mesh.devices):
+        row_lo = i * rows
+        st_i, clear_i = shared[i][4:]
+        v_total, _, max_pair = fronts[i]
+        with mesh.on(i):
+            k = recv_k[i]
+            k = torch.where(k == PACKED_SENTINEL, k, k - (row_lo << shift))
+            recv_valid = (k != PACKED_SENTINEL).sum(dtype=torch.int64)
+            key_hi, key_lo, payload = _raster.sort_segments(k, recv_p[i], slot_bits, tx_bits)
+            frame, diag = _back(
+                key_hi, key_lo, payload, v_total, total_segs.to(dev, non_blocking=True),
+                st_i, clear_i, rows, tiles_x, caps, features, channels,
+                row_lo=row_lo, presorted=True, plain=plain, taps=_shard_taps(taps, i),
+            )
+        frames.append(frame)
+        diags.append(torch.cat([diag, max_pair[None], recv_valid[None]]))
+    return tuple(frames), mesh.pmax(diags)
 
 
 def style_tables_device(st, device) -> dict:

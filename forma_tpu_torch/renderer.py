@@ -1,6 +1,6 @@
 """The PyTorch renderer facade.
 
-Counterpart of `forma_tpu/renderer.py:28-745,991-1079`.  Each frame runs
+Counterpart of `forma_tpu/renderer.py:28-1079`.  Each frame runs
 the pipeline (`ops/pipeline.render_frame`) with optimistic capacity
 buckets: the packed frame and a diagnostics vector come back together, the
 diagnostics cross to the host once, and if any actual total exceeded its
@@ -15,6 +15,11 @@ back only the damaged ones, in one round trip whose pixel prefix adapts to
 the previous frame's damage; `render_into(pipelined=True)` overlaps frame
 i's readback (non-blocking copies into pinned host memory on a CUDA
 device) with frame i + 1's dispatch.
+
+Multi-device frames: `render_device_sharded` (the frame sharded by tile
+rows) and `render_device_sharded_lines` (the lines too, with an exchange
+of segments between the shards) over a `mesh.Mesh` of the caller's
+devices, one card holding several shards where it is listed so.
 
 Geometry tensors are cached on the segment buffer's version and only
 re-upload when paths change; per-frame host work is O(#geometries +
@@ -32,6 +37,7 @@ from . import consts
 from .buffer import RGBA, Buffer, BufferLayerCache, LinearLayout
 from .buffer import normalize_channels as _normalize_channels
 from .composition import Composition
+from .mesh import Mesh
 from .ops import pipeline as _pipe
 from .ops import styles as _styles
 from .ops._u32 import from_numpy
@@ -66,11 +72,10 @@ def _bucket_fine(n: int, lo: int = 256) -> int:
     return p * 2
 
 
-def _not_ported(what: str, items: str):
-    return NotImplementedError(
-        f"{what} is not ported to forma_tpu_torch yet: ROADMAP.md section 1, "
-        f"{'items' if ' and ' in items else 'item'} {items}"
-    )
+def _shard_rows(height: int, n: int) -> int:
+    """A shard's tile rows: the frame's, padded up to a multiple of n."""
+    rows_total = -(-height // consts.TILE_HEIGHT)
+    return -(-rows_total // n)
 
 
 class Renderer:
@@ -109,6 +114,13 @@ class Renderer:
         self._styles_cache_key = None
         self._styles_cache = None
         self._estimate_key = None
+        self._pairs_cache_key = None
+        self._pairs_cache = None
+        # The line-sharded frame's per-shard buckets and exchange capacity,
+        # sized for `_lines_n` shards.
+        self._lines_n = None
+        self._caps_lines = None
+        self._xcap = None
         self._style_map = _styles.StyleMap()
         self._caps = caps if caps is not None else _pipe.Caps()
         self._cache_slots = 0  # 32-bit set of handed-out layer-cache ids
@@ -199,15 +211,42 @@ class Renderer:
                     slot,
                     -1,
                 ).astype(np.int32)
+            px = np.asarray(px, np.float32)
+            py = np.asarray(py, np.float32)
             self._geom_cache_key = key
             self._geom_cache = (
-                self._tensor(np.asarray(px, np.float32)),
-                self._tensor(np.asarray(py, np.float32)),
-                self._tensor(line_slot),
-                uniq,
-                line_slot,
+                self._tensor(px), self._tensor(py), self._tensor(line_slot),
+                uniq, line_slot, px, py,
             )
         return self._geom_cache[:4]
+
+    def _prepare_line_pairs(self, composition: Composition, n: int):
+        """The line-sharded frame's (p0x, p0y, p1x, p1y, line_slot) tensors:
+        each line's endpoints, permuted round-robin so that shard i owns
+        lines {i, i + n, ...}, a spatially uniform sample of the scene
+        (paths are spatially coherent, so contiguous blocks would skew the
+        shards' vline load and the exchange's destinations), padded with
+        dead lines to a multiple of n; cached on the segment buffer's
+        (serial, version) and n (`forma_tpu/renderer.py:834-868`)."""
+        buf = composition.shared_segment_buffer()
+        key = (buf.serial, buf.version, n)
+        if self._pairs_cache_key != key:
+            self._prepare_geometry(composition)
+            line_slot, px, py = self._geom_cache[4:]
+            L = line_slot.shape[0]
+            pad = (-L) % n
+
+            def padded(a, fill):
+                return np.concatenate([a, np.full(pad, fill, a.dtype)])
+
+            perm = np.argsort(np.arange(L + pad) % n, kind="stable")
+            self._pairs_cache = tuple(
+                self._tensor(padded(a, fill)[perm])
+                for a, fill in ((px[:-1], 0), (py[:-1], 0), (px[1:], 0),
+                                (py[1:], 0), (line_slot, -1))
+            )
+            self._pairs_cache_key = key
+        return self._pairs_cache
 
     def _geom_slots(self, composition: Composition, uniq: np.ndarray):
         """uniq geom id -> layer registry slot (-1 if unregistered); cached
@@ -382,12 +421,11 @@ class Renderer:
             and d[_pipe.DIAG_K] <= caps.k
         )
 
-    def _grow(self, d):
-        """Grows the buckets past the totals of diagnostics `d`."""
+    def _grow(self, d, caps: _pipe.Caps) -> _pipe.Caps:
+        """`caps` grown past the totals of diagnostics `d`."""
         self.regrow_count += 1
         h, hv = self._cap_headroom(), self._cap_headroom(area=True)
-        caps = self._caps
-        self._caps = _pipe.Caps(
+        return _pipe.Caps(
             vline=max(caps.vline, _bucket_fine(int(d[_pipe.DIAG_VLINES] * h) + 1)),
             run=max(caps.run, _bucket_fine(int(d[_pipe.DIAG_RUNS] * h))),
             virt=max(caps.virt, _bucket_fine(int(d[_pipe.DIAG_VIRT] * hv) + 1)),
@@ -722,7 +760,7 @@ class Renderer:
                 ))
             if self._fits(d, t["caps"]):
                 break
-            self._grow(d)
+            self._caps = self._grow(d, self._caps)
             # Re-render this frame against its kept previous state with the
             # grown buckets, and correct the chained cache arrays.
             t["recovered"] = True
@@ -764,38 +802,161 @@ class Renderer:
         the grid and fold kernels as every frame does.  On a CUDA device a
         kernel that fails to build or launch raises; nothing falls back to
         a plain version."""
-        self.flush_pending()
-        composition.compact_geom()
-        composition._shared.props_interner.compact()
+        inputs, st_host, chans = self._whole_frame_inputs(
+            composition, width, height, clear_color, channels
+        )
         rows = -(-height // consts.TILE_HEIGHT)
         tiles_x = -(-width // consts.TILE_WIDTH)
         row_lo = 0
         if row_span is not None:
             row_lo = row_span[0]
             rows = row_span[1] - row_span[0]
-        inputs, st_host, chans = self._frame_inputs(
-            composition, width, height, clear_color, channels
-        )
+        return self._until_fits(lambda: _pipe.render_frame(
+            *inputs, width, height, rows, tiles_x,
+            self._caps, st_host.features, chans,
+            row_lo=row_lo, crop_x=None if crop_x is None else tuple(crop_x),
+            expand=self.expand, plain=plain, taps=taps,
+        ), check_caps)
+
+    def _whole_frame_inputs(self, composition: Composition, width: int, height: int,
+                            clear_color: Color, channels):
+        """`_frame_inputs` of a frame rendered whole (no damage cache): the
+        last pipelined frame completed and the composition compacted first."""
+        self.flush_pending()
+        composition.compact_geom()
+        composition._shared.props_interner.compact()
+        return self._frame_inputs(composition, width, height, clear_color, channels)
+
+    def _until_fits(self, render, check_caps: bool, caps_attr: str = "_caps",
+                    exchange: bool = False):
+        """Calls `render()`, which reads the buckets named `caps_attr`, until
+        its diagnostics fit them (and with `exchange` the line-sharded
+        frame's `_xcap` too), growing them between attempts; returns
+        (`render`'s frame or frames, the diagnostics as numpy).  With
+        `check_caps=False` it returns the first attempt, its diagnostics
+        a device tensor, and reads nothing back."""
         for _ in range(8):  # bounded growth retries
-            frame, diag = _pipe.render_frame(
-                *inputs, width, height, rows, tiles_x,
-                self._caps, st_host.features, chans,
-                row_lo=row_lo, crop_x=None if crop_x is None else tuple(crop_x),
-                expand=self.expand, plain=plain, taps=taps,
-            )
+            out, diag = render()
             if not check_caps:
-                return frame, diag
+                return out, diag
             d = diag.cpu().numpy()
-            if self._fits(d, self._caps):
+            caps = getattr(self, caps_attr)
+            xfits = not exchange or d[_pipe.DIAG_XPAIR] <= self._xcap
+            if self._fits(d, caps) and xfits:
                 self.last_diag = d
-                return frame, d
-            self._grow(d)
+                return out, d
+            setattr(self, caps_attr, self._grow(d, caps))
+            if not xfits:
+                self._xcap = 128 * -(-(int(d[_pipe.DIAG_XPAIR]) + 1) // 128)
         raise RuntimeError(f"capacity growth did not converge: {d}")
 
-    # -- not in this slice -------------------------------------------------
+    # -- the multi-device frames --------------------------------------------
 
-    def render_device_sharded(self, *args, **kwargs):
-        raise _not_ported("the framebuffer-sharded path", "7 (multi-device paths)")
+    def _shard_mesh(self, n_shards: int, devices) -> Mesh:
+        """The mesh of `n_shards` shards (0: one a device) on the first
+        `n_shards` of `devices`; None means every device of the renderer's
+        type: each CUDA card, or the one CPU.  A device listed more than once holds
+        as many shards, which run in turn."""
+        if devices is None:
+            devices = (
+                [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                if self.device.type == "cuda" else [self.device]
+            )
+        devices = list(devices)
+        n = n_shards or len(devices)
+        if len(devices) < n:
+            raise ValueError(f"need {n} devices, have {len(devices)}")
+        mesh = Mesh(devices[:n])
+        if mesh.devices[0].type != self.device.type:
+            raise ValueError(
+                f"a {self.device.type} renderer places no shard on {mesh.devices[0].type}"
+            )
+        return mesh
 
-    def render_device_sharded_lines(self, *args, **kwargs):
-        raise _not_ported("the line-sharded path", "7 (multi-device paths)")
+    def render_device_sharded(
+        self,
+        composition: Composition,
+        width: int,
+        height: int,
+        clear_color: Color = Color(0.0, 0.0, 0.0, 1.0),
+        channels=RGBA,
+        n_shards: int = 0,
+        check_caps: bool = True,
+        devices=None,
+        taps=None,  # dict: receives each shard's kernel inputs under its index
+    ):
+        """Renders with the frame sharded by tile rows over `n_shards`
+        devices (`pipeline.render_frame_sharded`; `forma_tpu/renderer.py:
+        746-832`): every shard gets the whole scene, and rasterizes, sorts
+        and paints only its rows.  `devices` lists the shards' devices
+        (None: every device of the renderer's type; fewer than `n_shards`
+        raises `ValueError`); one card holds several shards only when it
+        is listed as often, for example `["cuda:0"] * 4`.  Returns (the
+        shards' u8 frames, each [rows*16, tiles_x*16, C] on its device,
+        diag): `torch.cat` of the frames, moved to one device, is the
+        JAX package's sharded frame, whose first `height` rows are the image (the tile rows pad
+        up to a multiple of the shard count).  The diagnostics are the
+        maximum over the shards, so the growth loop of `render_device`
+        applies, with `check_caps` as there."""
+        mesh = self._shard_mesh(n_shards, devices)
+        inputs, st_host, chans = self._whole_frame_inputs(
+            composition, width, height, clear_color, channels
+        )
+        rows, tiles_x = _shard_rows(height, mesh.size), -(-width // consts.TILE_WIDTH)
+        return self._until_fits(lambda: _pipe.render_frame_sharded(
+            *inputs, width, height, rows, tiles_x,
+            self._caps, st_host.features, chans, mesh,
+            expand=self.expand, taps=taps,
+        ), check_caps)
+
+    def render_device_sharded_lines(
+        self,
+        composition: Composition,
+        width: int,
+        height: int,
+        clear_color: Color = Color(0.0, 0.0, 0.0, 1.0),
+        channels=RGBA,
+        n_shards: int = 0,
+        check_caps: bool = True,
+        devices=None,
+        taps=None,
+    ):
+        """Renders with the lines and the frame both sharded over
+        `n_shards` devices (`pipeline.render_frame_sharded_lines`;
+        `forma_tpu/renderer.py:870-989`): each shard rasterizes and sorts
+        its own ~1/n of the lines, the segments change places to the
+        shards that own their rows, and each shard sorts and paints its
+        own.  Arguments and result as `render_device_sharded`, the
+        diagnostics with DIAG_XPAIR and DIAG_XRECV.  The per-shard buckets
+        start at 1/n of the single-device estimate and the exchange
+        capacity at twice a shard's segment slots over n; both grow in
+        the loop.  A scene whose [row | slot | tx] key passes 31 bits
+        takes `render_device_sharded` instead."""
+        mesh = self._shard_mesh(n_shards, devices)
+        n = mesh.size
+        inputs, st_host, chans = self._whole_frame_inputs(
+            composition, width, height, clear_color, channels
+        )
+        rows, tiles_x = _shard_rows(height, n), -(-width // consts.TILE_WIDTH)
+        if _pipe.slot_bits_for(st_host.orders.shape[0], rows * n, tiles_x) == 0:
+            return self.render_device_sharded(
+                composition, width, height, clear_color, channels, n, check_caps,
+                mesh.devices, taps,
+            )
+        pairs = self._prepare_line_pairs(composition, n)
+        if self._lines_n != n:
+            c = self._caps
+            self._caps_lines = _pipe.Caps(
+                vline=_bucket_fine(-(-c.vline // n)),
+                run=_bucket_fine(-(-c.run // n)),
+                virt=_bucket_fine(-(-c.virt // n)),
+                k=c.k,
+            )
+            est = self._caps_lines.vline * _pipe.K_SEG // n * 2
+            self._xcap = max(128 * -(-est // 128), 1024)
+            self._lines_n = n
+        return self._until_fits(lambda: _pipe.render_frame_sharded_lines(
+            *pairs, *inputs[3:], width, height, rows, tiles_x,
+            self._caps_lines, st_host.features, chans, mesh, self._xcap,
+            expand=self.expand, taps=taps,
+        ), check_caps, "_caps_lines", exchange=True)

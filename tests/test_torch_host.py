@@ -34,7 +34,7 @@ def test_import_loads_neither_jax_nor_forma_tpu():
         "import sys, forma_tpu_torch, forma_tpu_torch.demos.scenes, "
         "forma_tpu_torch.demos.spaceship, forma_tpu_torch.convert, "
         "forma_tpu_torch.demos.svg, forma_tpu_torch.demos.main, "
-        "forma_tpu_torch.profiling, forma_tpu_torch.backend_numpy\n"
+        "forma_tpu_torch.profiling, forma_tpu_torch.backend_numpy, forma_tpu_torch.mesh\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.split('.')[0] == 'forma_tpu']\n"
         "assert not bad, bad\n"

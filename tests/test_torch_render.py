@@ -220,15 +220,6 @@ def test_import_leaves_jax_out():
     subprocess.run([sys.executable, "-c", code], check=True)
 
 
-def test_unported_entry_points_raise():
-    """Only the two sharded entry points (ROADMAP.md section 1, item 7)
-    are not ported."""
-    r = Renderer("cpu")
-    for call in (r.render_device_sharded, r.render_device_sharded_lines):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-
-
 def test_convert_round_trips_graft_prep():
     """`from_jax_args` takes `__graft_entry__._prep`'s tuple: every leaf
     keeps its values (u32 -> int64), and the port renders the same frame
