@@ -90,17 +90,22 @@ failure exits non-zero:
    checked and timed there as in phase 3, and the probe's window gather;
 12. K8, the fold ablation (`forma_tpu_torch.probes.fold_ablate`) on the
    TPU tool's paris-like inputs (seed 0: 465,747 units over 8,160 tiles),
-   built once: its six variants against the plain version (bit-equal) on
-   the first 8 blocks, `full` checked and timed at the full shape as in
-   phase 3, then its entry point's measurement (counters reset and read)
-   and each piece's cost beside K3 `fold` from phase 3;
+   built once: its six variants in both designs (`DESIGNS`: grid words
+   from device memory, or rows staged by TMA) against the plain version
+   (bit-equal) on the first 8 blocks and at the full shape; each variant
+   of the default design checked and timed at the full shape as in phase
+   3; the kernels' ptxas registers and spills; then its entry point's
+   measurement (counters reset and read) and each design's pieces beside
+   K3 `fold` from phase 3 (also timed there by CUDA graph);
 13. K6 and K7 (`probes.microbench`) at the TPU tool's sizes: K6's grouping
    prep timed alone, each kernel against its plain version as in phase 3,
    then the entry point's measurement with the counters reset and read;
 14. K9 (`probes.grid_scatter`), 2^20 segments in its two input modes, each
    against the plain version as in phase 3 with its rate in M segments/s
-   beside K2's on the phase 3 frame, then the entry point's measurement
-   with the counters reset and read.
+   beside K2's on the phase 3 frame; a ragged cut with segments outside
+   the window bit-equal too (fewer clusters); the kernel's ptxas lines;
+   then the entry point's measurement (CUDA graph ms) with the counters
+   reset and read.
    Phases 12-14 also time each kernel as 20 calls captured in one CUDA
    graph (`ms_graph`, and the library call's where it allows a graph):
    the device time alone, where `ms` of a ~20 us kernel reads its
@@ -213,6 +218,15 @@ change, parent), in both ways above and with the wrapper's host
 microseconds, each output held bit-equal to this checkout's plain
 version (a port whose fold takes no `row_lo` gets the arguments before
 it: these frames' row_lo is 0); `tile_order` is timed alone first.
+
+    python3 chip_smoke.py --probe-timing DIR [DIR ...]
+
+times K8's six variants and K9's two modes instead, on this checkout's
+inputs (the TPU tools' shapes), through the port of the checkout in each
+DIR in turn (parent, change, change, parent) at that port's defaults,
+each output held bit-equal to this checkout's plain version: batched,
+synchronised and CUDA-graph ms, the wrapper's host microseconds and each
+DIR's ptxas lines for both kernels, with `index_add_` beside K9 once.
 
     python3 chip_smoke.py --raster-timing DIR [DIR ...] [--scene ...]
 
@@ -327,6 +341,7 @@ PATHS = {
 }
 PARIS_W, PARIS_H = 1920, 1080
 MIX_W, MIX_H = 512, 512
+N_SCATTER = 1 << 20  # K9's segments (the TPU tool's)
 PARIS_SCENES = {"paris": "paris30k", "styled": "paris30k_styled",
                 "textured": "paris30k_textured"}
 
@@ -705,7 +720,9 @@ def check_kernels(taps) -> dict:
         "grid": (gk.grid_build, gk.grid_build_torch),
         "fold": (fk.paint_fold, fk.paint_fold_torch),
     }
-    return {name: check_kernel(name, *pair, taps[name]) for name, pair in pairs.items()}
+    # K3 also by CUDA graph replays: phase 12 sets K8 beside it.
+    return {name: check_kernel(name, *pair, taps[name], graph=name == "fold")
+            for name, pair in pairs.items()}
 
 
 def check_fold(name: str, args, **label) -> dict:
@@ -1154,11 +1171,34 @@ def texture_probe(device) -> tuple:
     return {"mode": "atlas_rowsel", **out["atlas_rowsel"]}, launches
 
 
+def ptxas_lines(log_path, needle: str) -> list:
+    """(entry, registers line, spill line) of every kernel whose mangled
+    name holds `needle` in the nvcc log at `log_path`."""
+    log = log_path.read_text().splitlines()
+    out = []
+    for i, line in enumerate(log):
+        if "Compiling entry" in line and needle in line:
+            rest = [x.strip() for x in log[i + 1:i + 5]]
+            regs = next((x for x in rest if "registers" in x), "")
+            spill = next((x for x in rest if "spill" in x), "")
+            name = line.split("'")[1] if "'" in line else line.strip()
+            out.append((needle + name.split(needle, 1)[1][:36], regs, spill))
+    return out
+
+
+def say_ptxas(phase: str, log_path, needle: str) -> None:
+    for entry, regs, spill in ptxas_lines(log_path, needle):
+        say(phase, entry=entry, ptxas=repr(regs.replace("ptxas info    : ", "")),
+            spills=repr(spill))
+
+
 def fold_ablation(device, k3: dict) -> tuple:
-    """Phase 12: K8's six variants against the plain version on the first 8
-    blocks of the TPU tool's inputs, `full` checked and timed at the full
-    shape, then its entry point's measurement with the counters reset and
-    read; each piece's cost beside K3 `fold` (`k3`, phase 3); returns
+    """Phase 12: K8's six variants in both designs against the plain
+    version, bit-equal on the first 8 blocks of the TPU tool's inputs and at
+    their full shape; each variant of the default design checked and timed
+    at the full shape as in phase 3 (with CUDA graph ms); the kernels'
+    ptxas lines; then its entry point's measurement with the counters reset
+    and read; each piece's cost beside K3 `fold` (`k3`, phase 3); returns
     (the `full` numbers, launches)."""
     from forma_tpu_torch.ops import _build
     from forma_tpu_torch.probes import fold_ablate as k8
@@ -1166,31 +1206,43 @@ def fold_ablation(device, k3: dict) -> tuple:
     t = time.perf_counter()
     u_mat, blkinfo = k8.paris_inputs()
     say("ablate", inputs_build_s=f"{time.perf_counter() - t:.1f}", tiles=blkinfo.shape[0] * k8.TB,
-        units=k8.addressed_rows(blkinfo), u_mat_rows=u_mat.shape[0])
+        units=k8.addressed_rows(blkinfo), u_mat_rows=u_mat.shape[0], design=k8.DESIGN)
     u_mat, blkinfo = u_mat.to(device), blkinfo.to(device)
     clear = torch.ones(4, dtype=torch.float32, device=device)
     cut = blkinfo[:8].contiguous()
     for variant in k8.VARIANTS:
-        got = k8.fold_ablate(u_mat, cut, clear, variant)
-        torch.cuda.synchronize()
-        err = max_abs_err((got,), (k8.fold_ablate_torch(u_mat, cut, clear, variant),))
-        say("ablate", variant=variant, nblk=8, units=k8.addressed_rows(cut), max_abs_err=err)
-        if err != 0.0:
-            raise AssertionError(f"fold_ablate {variant}: differs from its plain version ({err})")
-    res = check_kernel("fold_ablate", k8.fold_ablate, k8.fold_ablate_torch,
-                       (u_mat, blkinfo, clear, "full"), graph=True, variant="full")
+        for bi in (cut, blkinfo):
+            want = k8.fold_ablate_torch(u_mat, bi, clear, variant)
+            for design in k8.DESIGNS:
+                got = k8.fold_ablate(u_mat, bi, clear, variant, design)
+                torch.cuda.synchronize()
+                err = max_abs_err((got,), (want,))
+                say("ablate", variant=variant, design=design, nblk=bi.shape[0],
+                    units=k8.addressed_rows(bi), max_abs_err=err)
+                if err != 0.0:
+                    raise AssertionError(f"fold_ablate {variant} ({design}): differs from its "
+                                         f"plain version ({err})")
+    res = {}
+    for variant in k8.VARIANTS:
+        res[variant] = check_kernel("fold_ablate", k8.fold_ablate, k8.fold_ablate_torch,
+                                    (u_mat, blkinfo, clear, variant), graph=True,
+                                    variant=variant, design=k8.DESIGN)
+    say_ptxas("ablate", _build.library_path().parent / "nvcc.log", "fold_ablate_kernel")
     _build.reset_launches()
     m = k8.measure((u_mat, blkinfo), device)
     launches = dict(_build.LAUNCHES)
-    say("ablate", tiles=m["tiles"], units=m["units"], launches=launches["fold_ablate"],
-        **{f"{v}_ms": f"{m[v]:.4f}" for v in k8.VARIANTS})
-    say("k8", question="what each piece of a fold step costs, against K3 fold",
-        **{f"piece_{p}_ms": f"{ms:.4f}" for p, ms in k8.pieces(m).items()},
-        k3_fold_ms=f"{k3['ms']:.4f}", k3_fold_bound_ms=f"{k3['bound_ms']:.4f}",
-        full_bound_ms=f"{res['bound_ms']:.4f}")
+    say("ablate", tiles=m["tiles"], units=m["units"], launches=launches["fold_ablate"])
+    for design in k8.DESIGNS:
+        say("ablate", design=design, **{f"{v}_ms": f"{m[design][v]:.4f}" for v in k8.VARIANTS})
+        say("k8", question="what each piece of a fold step costs, against K3 fold",
+            design=design,
+            **{f"piece_{p}_ms": f"{ms:.4f}" for p, ms in k8.pieces(m[design]).items()},
+            k3_fold_ms=f"{k3['ms']:.4f}", k3_fold_ms_graph=f"{k3['ms_graph']:.4f}",
+            k3_fold_bound_ms=f"{k3['bound_ms']:.4f}",
+            full_bound_ms=f"{res['full']['bound_ms']:.4f}")
     if launches["fold_ablate"] < 1:
         raise AssertionError("fold_ablate was never launched by its entry point")
-    return res, launches
+    return res["full"], launches
 
 
 def microbenchmarks(device) -> tuple:
@@ -1227,20 +1279,38 @@ def microbenchmarks(device) -> tuple:
     return out, launches
 
 
+def scatter_edges(n: int = 8 * 16384 + 3, seed: int = 3) -> tuple:
+    """(row, cell, val) i32 [n] from a numpy seed, row and cell in [-3,
+    259): a ragged length and segments outside the window."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.integers(lo, hi, n).astype(np.int32))
+                 for lo, hi in ((-3, 259), (-3, 259), (-1000, 1000)))
+
+
 def scatter_probe(device, k2_slots: int, k2_live: int, k2: dict) -> tuple:
     """Phase 14: K9 in both input modes against the plain version, each
     with its rate beside K2's on the phase 3 frame (`k2_slots` segment
-    slots, `k2_live` of them live, K2's numbers `k2`), then the entry
-    point's measurement with the counters reset and read; returns (the
-    `independent` numbers, launches)."""
+    slots, `k2_live` of them live, K2's numbers `k2`), a ragged cut with
+    segments outside the window bit-equal too, the kernel's ptxas lines,
+    then the entry point's measurement with the counters reset and read;
+    returns (the `independent` numbers, launches)."""
     from forma_tpu_torch.ops import _build
     from forma_tpu_torch.probes import grid_scatter as k9
 
+    edges = tuple(t.to(device) for t in scatter_edges())
+    got = k9.grid_scatter(*edges)
+    torch.cuda.synchronize()
+    err = max_abs_err((got,), (k9.grid_scatter_torch(*edges),))
+    say("scatter", mode="edges", segments=edges[0].numel(),
+        clusters=k9.cluster_count(edges[0].numel()), max_abs_err=err)
+    if err != 0.0:
+        raise AssertionError(f"grid_scatter on the ragged cut: differs from its plain "
+                             f"version ({err})")
     out = {}
     for mode in k9.MODES:
         args = tuple(t.to(device) for t in k9.scatter_inputs(mode))
         out[mode] = check_kernel("grid_scatter", k9.grid_scatter, k9.grid_scatter_torch, args,
-                                 graph=True, mode=mode)
+                                 graph=True, mode=mode, clusters=k9.cluster_count(N_SCATTER))
         say("scatter", mode=mode, segments=args[0].numel(),
             M_segments_per_s=f"{args[0].numel() / out[mode]['ms'] / 1e3:.1f}",
             library_M_segments_per_s=f"{args[0].numel() / out[mode]['library_ms'] / 1e3:.1f}",
@@ -1251,6 +1321,7 @@ def scatter_probe(device, k2_slots: int, k2_live: int, k2: dict) -> tuple:
         k2_live_segments=k2_live,
         k2_M_slots_per_s=f"{k2_slots / k2['ms'] / 1e3:.1f}",
         k2_M_live_segments_per_s=f"{k2_live / k2['ms'] / 1e3:.1f}")
+    say_ptxas("scatter", _build.library_path().parent / "nvcc.log", "grid_scatter_kernel")
     _build.reset_launches()
     m = k9.measure(device)
     launches = dict(_build.LAUNCHES)
@@ -2282,6 +2353,56 @@ def raster_timing(roots, scene: str) -> int:
     return 0
 
 
+def probe_timing(roots) -> int:
+    """`--probe-timing DIR [DIR ...]`: K8's six variants and K9's two modes
+    on this checkout's inputs (the TPU tools' shapes) through the port of
+    the checkout in each DIR in turn, each at that port's defaults and each
+    output held bit-equal to this checkout's plain version; batched, sync
+    and CUDA-graph ms and the wrapper's host microseconds, and each DIR's
+    ptxas lines for both kernels; `index_add_` beside K9 once."""
+    from forma_tpu_torch.probes import fold_ablate as k8
+    from forma_tpu_torch.probes import grid_scatter as k9
+    from forma_tpu_torch.probes import time_ms_graph
+
+    device = torch.device("cuda", 0)
+    u_mat, blkinfo = (t.to(device) for t in k8.paris_inputs())
+    clear = torch.ones(4, dtype=torch.float32, device=device)
+    want8 = {v: k8.fold_ablate_torch(u_mat, blkinfo, clear, v) for v in k8.VARIANTS}
+    inputs9 = {m: tuple(t.to(device) for t in k9.scatter_inputs(m)) for m in k9.MODES}
+    want9 = {m: k9.grid_scatter_torch(*a) for m, a in inputs9.items()}
+    say("probe-timing", card=repr(gpu_record()), units=k8.addressed_rows(blkinfo),
+        segments=N_SCATTER)
+    for mode, (row, cell, val) in inputs9.items():
+        flat = torch.zeros(256 * 256, dtype=torch.int32, device=device)
+        idx = row.long() * 256 + cell.long()
+        lib = lambda: flat.index_add_(0, idx, val)  # noqa: E731
+        say("probe-timing", kernel="grid_scatter", mode=mode, library="index_add_",
+            library_ms=f"{time_ms(lib):.4f}", library_ms_graph=f"{time_ms_graph(lib):.4f}")
+    ports = {}
+    for root in map(os.path.abspath, roots):
+        if root not in ports:
+            ports[root] = import_port(root, "probes.fold_ablate", "probes.grid_scatter",
+                                      "ops._build")
+        p8, p9, build = ports[root]
+        runs = [("fold_ablate", v, lambda v=v: p8.fold_ablate(u_mat, blkinfo, clear, v),
+                 want8[v]) for v in k8.VARIANTS]
+        runs += [("grid_scatter", m, lambda a=a: p9.grid_scatter(*a), want9[m])
+                 for m, a in inputs9.items()]
+        for name, what, fn, want in runs:
+            got = fn()
+            torch.cuda.synchronize()
+            err = max_abs_err((got,), (want,))
+            say("probe-timing", port=root, kernel=name, case=what, max_abs_err=err,
+                ms=f"{time_ms(fn):.4f}", ms_sync=f"{time_ms_sync(fn):.4f}",
+                ms_graph=f"{time_ms_graph(fn):.4f}", host_us=f"{host_us(fn):.1f}")
+            if err != 0.0:
+                raise AssertionError(f"{root}: {name} {what} differs from the plain version "
+                                     f"({err})")
+        for needle in ("fold_ablate_kernel", "grid_scatter_kernel"):
+            say_ptxas(f"probe-timing {root}", build.library_path().parent / "nvcc.log", needle)
+    return 0
+
+
 def fold_timing(roots, scene: str) -> int:
     """`--fold-timing DIR [DIR ...]`: K3 on one frame's own inputs, recorded
     by this checkout's port, through the port of the checkout in each DIR
@@ -2325,6 +2446,8 @@ def main() -> int:
     ap.add_argument("--raster-timing", metavar="DIR", nargs="+",
                     help="time K4 and the segment sort alone with the port of the "
                          "checkout in each DIR")
+    ap.add_argument("--probe-timing", metavar="DIR", nargs="+",
+                    help="time K8 and K9 alone with the port of the checkout in each DIR")
     ap.add_argument("--multi-card", action="store_true",
                     help="run only phase 19 (e), the sharded frames with one shard on "
                          "each card (needs two cards or more)")
@@ -2340,6 +2463,8 @@ def main() -> int:
         return fold_timing(opts.fold_timing, opts.scene)
     if opts.raster_timing:
         return raster_timing(opts.raster_timing, opts.scene)
+    if opts.probe_timing:
+        return probe_timing(opts.probe_timing)
     from forma_tpu_torch import Color, Composition, Renderer
     from forma_tpu_torch.demos import scenes
     from forma_tpu_torch.ops import _build

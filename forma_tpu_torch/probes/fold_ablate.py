@@ -30,11 +30,25 @@ The blkinfo layout is `paint_pallas`'s at TB = 32 (START, NCHUNK, KMAX,
 then BASE0, CNT, X0, Y0 of 32 tiles each, 136 lanes); the tool's own
 `BI` constant still describes TB = 8 and does not match its inputs.
 
-`fold_ablate` launches the CUDA kernel (`csrc/fold_ablate.cu`, launch
-counter "fold_ablate") for CUDA tensors and takes `fold_ablate_torch` for
-CPU tensors.  The entry point needs a CUDA card and does not fall back to
-the CPU; beside the variants it times K3 `fold` on the real paris-30k
-frame, whose distance from its bound is the question K8 serves.
+The kernel (`csrc/fold_ablate.cu`, launch counter "fold_ablate") takes
+K3 `fold`'s step, so that the pieces price the step K3 takes: one block a
+tile, 128 threads of two pixels each, the cover prefix a 3-shuffle scan
+of pair sums, and each chunk of units' carries, fill and rule staged in
+shared memory.  `DESIGNS` are its ways of loading the rows: "direct"
+reads each step's grid words from device memory as K3 does, the price of
+K3's step; "tma16" copies the next chunk of 16 whole rows into shared
+memory with one TMA bulk copy a row while the block folds the current
+chunk.  "tma16" is the faster on the H100 and the default (`DESIGN`);
+what bounds it is the rate of the step's instructions and the tail of the
+deepest tiles.  Chunks of 32 or 8 rows, and the tiles folded deepest
+first (a sort that costs more than it saves), lost there (`PERF.md`
+section 6).
+
+`fold_ablate` launches the kernel for CUDA tensors and takes
+`fold_ablate_torch` for CPU tensors.  The entry point needs a CUDA card
+and does not fall back to the CPU; it times every variant in both designs
+and K3 `fold` on the real paris-30k frame, whose distance from its bound
+is the question K8 serves.
 """
 
 from __future__ import annotations
@@ -72,6 +86,12 @@ VARIANTS = {
     "no_blend": (True, True, True, False),
     "loads_only": (True, False, False, False),
 }
+# How the kernel loads the rows (csrc/fold_ablate.cu): "direct" reads each
+# step's grid words from device memory as K3 does; "tma16" copies each
+# chunk of 16 rows into shared memory by TMA while the block folds the
+# chunk before.
+DESIGNS = ("direct", "tma16")
+DESIGN = "tma16"
 
 
 def paris_like_depths(rng) -> np.ndarray:
@@ -145,12 +165,15 @@ def _variant(variant: str):
     return VARIANTS[variant]
 
 
-def fold_ablate(u_mat, blkinfo, clear, variant: str = "full"):
+def fold_ablate(u_mat, blkinfo, clear, variant: str = "full", design: str = DESIGN):
     """u_mat i32 [U, 384]; blkinfo i32 [blocks, 136]; clear f32 [4];
     returns f32 [blocks * 32, 1024], channel-major blocks of 256 pixels.
-    CUDA tensors launch `forma_fold_ablate`; CPU tensors take
-    `fold_ablate_torch`."""
+    `design` (one of DESIGNS) chooses how the kernel loads the rows.  CUDA
+    tensors launch `forma_fold_ablate`; CPU tensors take
+    `fold_ablate_torch` (the result is the same in both designs)."""
     _variant(variant)
+    if design not in DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
     n_rows, nblk = u_mat.shape[0], blkinfo.shape[0]
     check = _build.check if u_mat.is_cuda else _build.check_shape
     check(u_mat, "u_mat", torch.int32, (n_rows, UW))
@@ -160,12 +183,13 @@ def fold_ablate(u_mat, blkinfo, clear, variant: str = "full"):
         raise ValueError("u_mat: expected at least one row")
     if not u_mat.is_cuda:
         return fold_ablate_torch(u_mat, blkinfo, clear, variant)
+    _build.check_aligned(u_mat, "u_mat", 16)
     out = torch.empty((nblk * TB, 1024), dtype=torch.float32, device=u_mat.device)
     if nblk:
         _build.launch(
             "forma_fold_ablate", "fold_ablate",
-            u_mat.data_ptr(), blkinfo.data_ptr(), clear.data_ptr(), nblk * TB, n_rows,
-            BI_W, list(VARIANTS).index(variant), out.data_ptr(),
+            u_mat.data_ptr(), blkinfo.data_ptr(), clear.data_ptr(), nblk * TB, n_rows, BI_W,
+            list(VARIANTS).index(variant), DESIGNS.index(design), out.data_ptr(),
         )
     return out
 
@@ -234,27 +258,37 @@ def addressed_rows(blkinfo) -> int:
 
 
 def measure(inputs=None, device="cuda") -> dict:
-    """Device time of every variant on `device` (a card; CUDA graph
-    replays) at the tool's paris shape (or on `inputs`, (u_mat, blkinfo)
-    from `build_inputs`); returns {variant: ms, "units": rows folded,
-    "tiles": n}."""
+    """Device time of every variant in both designs on `device` (a card;
+    CUDA graph replays) at the tool's paris shape (or on `inputs`,
+    (u_mat, blkinfo) from `build_inputs`); returns {design: {variant:
+    ms}, "units": rows folded, "tiles": n}.  "no_loads" is one kernel in
+    both designs and is timed once."""
     u_mat, blkinfo = inputs if inputs is not None else paris_inputs()
     u_mat, blkinfo = u_mat.to(device), blkinfo.to(device)
     clear = torch.ones(4, dtype=torch.float32, device=device)
     res = {"units": addressed_rows(blkinfo), "tiles": blkinfo.shape[0] * TB}
-    for name in VARIANTS:
-        res[name] = time_ms_graph(lambda: fold_ablate(u_mat, blkinfo, clear, name))
+    held = None
+    for design in DESIGNS:
+        res[design] = {}
+        for name in VARIANTS:
+            if name == "no_loads" and held is not None:
+                res[design][name] = held
+                continue
+            res[design][name] = time_ms_graph(
+                lambda: fold_ablate(u_mat, blkinfo, clear, name, design))
+        held = res[design]["no_loads"]
     return res
 
 
-def pieces(res: dict) -> dict:
-    """The cost of each piece, full minus the variant without it (ms)."""
+def pieces(times: dict) -> dict:
+    """The cost of each piece, full minus the variant without it (ms), from
+    one design's {variant: ms}."""
     return {
-        "loads": res["full"] - res["no_loads"],
-        "dots": res["full"] - res["no_dots"],
-        "rolls": res["full"] - res["no_rolls"],
-        "blend": res["full"] - res["no_blend"],
-        "dots_rolls_blend": res["full"] - res["loads_only"],
+        "loads": times["full"] - times["no_loads"],
+        "dots": times["full"] - times["no_dots"],
+        "rolls": times["full"] - times["no_rolls"],
+        "blend": times["full"] - times["no_blend"],
+        "dots_rolls_blend": times["full"] - times["loads_only"],
     }
 
 
@@ -275,10 +309,11 @@ def main(argv=None):
     res = measure()
     print(f"card: {torch.cuda.get_device_name(0)}; {res['tiles']} tiles, "
           f"{res['units']} units folded")
-    for name in VARIANTS:
-        print(f"{name:12s} {res[name]:8.4f} ms")
-    for piece, ms in pieces(res).items():
-        print(f"full - without {piece:16s} {ms:+8.4f} ms")
+    for design in DESIGNS:
+        for name in VARIANTS:
+            print(f"{design:6s} {name:12s} {res[design][name]:8.4f} ms")
+        for piece, ms in pieces(res[design]).items():
+            print(f"{design:6s} full - without {piece:16s} {ms:+8.4f} ms")
     print(f"K3 fold on paris-30k@1080p: {k3_paris_ms():8.4f} ms")
 
 

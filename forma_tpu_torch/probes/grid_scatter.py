@@ -5,11 +5,19 @@
 The TPU probe asked how fast a kernel accumulates a stream of segments
 into a [256, 256] i32 window, acc[row, cell] += val, one read-modify-write
 per segment: the question of K2's untried shared-memory run window.  The
-kernel (`csrc/grid_scatter.cu`, counter "grid_scatter") splits the window
-into two bands of 128 rows, each a block's shared memory, adds each
-chunk of segments with integer atomics, stores each chunk's window and
-adds the chunks' windows in a second pass: exact in any order.  Segments
-whose row or cell lies outside [0, 256) add nothing.
+kernel (`csrc/grid_scatter.cu`, counter "grid_scatter") holds the 256 KB
+window in the distributed shared memory of a thread-block cluster of
+`CLUSTER` = 2 CTAs, each owning 128 rows; each of `cluster_count(n)`
+clusters reads its share of the segments once and adds each one into the
+rank that owns its row, then reduces its window into the output (zeroed
+by a memset queued before the kernel) with bulk reductions in L2: exact
+in any order, one launch, no scratch.  Segments whose row or cell lies
+outside [0, 256) add nothing.  What bounds it: the remote adds and the
+clusters' windows reduced in L2 (256 KB each); it reads the segments
+once.  Larger clusters lost on the card (a remote add beyond a pair costs
+several times as much); the design before clusters, two bands of 128 rows
+whose chunks' windows a second kernel summed, reading each segment twice,
+is faster there by CUDA graph (`PERF.md` section 6).
 
 Two input modes, from a numpy seed, 2^20 segments as the tool's:
 `independent` draws row, cell and val apart; `probe` has row == cell,
@@ -36,10 +44,12 @@ from .texture_fold import time_ms
 
 WINDOW = 256  # rows (pallas_scatter_probe.py:WINDOW)
 CELLS = 256
-BAND_ROWS = 128  # rows per kernel band (csrc/grid_scatter.cu)
-CHUNK = 16384  # segments per kernel block (a multiple of 4)
+BAND_ROWS = 128  # rows per band of the plain version
 N = 1 << 20  # segments (pallas_scatter_probe.py:100, run(20))
 MODES = ("independent", "probe")
+CLUSTER = 2  # CTAs per cluster (csrc/grid_scatter.cu: kCluster)
+CLUSTERS = 64  # clusters of a full launch: 128 CTAs, one on each of ~all 132 SMs
+SEGMENTS_PER_CTA = 4096  # the least share of a CTA before clusters are cut
 
 
 def scatter_inputs(mode: str, n: int = N, seed: int = 0):
@@ -54,11 +64,17 @@ def scatter_inputs(mode: str, n: int = N, seed: int = 0):
     return torch.from_numpy(row), torch.from_numpy(cell), torch.from_numpy(val)
 
 
+def cluster_count(n: int) -> int:
+    """Clusters of a launch over n segments: CLUSTERS, fewer where a CTA's
+    share would fall below SEGMENTS_PER_CTA, and at least one."""
+    return max(1, min(CLUSTERS, -(-n // (CLUSTER * SEGMENTS_PER_CTA))))
+
+
 def grid_scatter(row, cell, val):
     """row, cell, val i32 [n]; returns acc i32 [256, 256] with acc[row,
     cell] += val.  CUDA tensors (16-byte aligned: the kernel loads int4
-    vectors) launch `forma_grid_scatter`, CHUNK segments per block; CPU
-    tensors take `grid_scatter_torch`."""
+    vectors) launch `forma_grid_scatter` over `cluster_count(n)` clusters;
+    CPU tensors take `grid_scatter_torch`."""
     if row.dim() != 1:
         raise ValueError(f"row: expected a vector, got shape {tuple(row.shape)}")
     n = row.shape[0]
@@ -69,11 +85,9 @@ def grid_scatter(row, cell, val):
         return grid_scatter_torch(row, cell, val)
     for t, name in ((row, "row"), (cell, "cell"), (val, "val")):
         _build.check_aligned(t, name, 16)
-    partial = torch.empty((-(-n // CHUNK), WINDOW * CELLS), dtype=torch.int32,
-                          device=row.device)
     out = torch.empty((WINDOW, CELLS), dtype=torch.int32, device=row.device)
     _build.launch("forma_grid_scatter", "grid_scatter", row.data_ptr(), cell.data_ptr(),
-                  val.data_ptr(), n, CHUNK, partial.data_ptr(), out.data_ptr())
+                  val.data_ptr(), n, cluster_count(n), out.data_ptr())
     return out
 
 
@@ -113,7 +127,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("grid_scatter: no CUDA card; this probe times the card")
     res = measure()
-    print(f"card: {torch.cuda.get_device_name(0)}")
+    print(f"card: {torch.cuda.get_device_name(0)}; {cluster_count(N)} clusters of {CLUSTER}")
     for mode in MODES:
         print(f"{N} segments, {mode:12s} {res[mode]:8.4f} ms -> "
               f"{N / res[mode] / 1e3:8.0f} M segments/s")

@@ -12,7 +12,9 @@ and to a numpy evaluation of the same statements:
   `tools/tpu_microbench2.py:main` (K6's `out` starts from a zero input
   through `input_output_aliases`);
 - K9 against `tools/pallas_scatter_probe.kernel` at 2 * CHUNK segments,
-  exact.
+  exact;
+- the probes' host-side logic: K8's row-load designs (one result on the
+  CPU, a bad one refused), K9's cluster count.
 """
 
 import sys
@@ -347,3 +349,28 @@ def test_grid_scatter_cpu_dispatch_and_checks():
         k9.grid_scatter(row, cell[:10], val)
     with pytest.raises(ValueError, match="int32"):
         k9.grid_scatter(row, cell, val.long())
+
+
+def test_fold_ablate_designs_on_cpu(k8_inputs):
+    """Both designs take the plain version on the CPU and give its result;
+    a bad design is refused."""
+    u_mat, blkinfo, clear = k8_inputs
+    want = k8.fold_ablate_torch(u_mat, blkinfo, clear, "full")
+    _build.reset_launches()
+    for design in k8.DESIGNS:
+        assert torch.equal(k8.fold_ablate(u_mat, blkinfo, clear, "full", design), want)
+    assert _build.LAUNCHES["fold_ablate"] == 0
+    assert k8.DESIGN in k8.DESIGNS
+    with pytest.raises(ValueError, match="design"):
+        k8.fold_ablate(u_mat, blkinfo, clear, "full", "tma8")
+
+
+@pytest.mark.parametrize("n", [0, 1000, 1 << 18, 1 << 20, 1 << 24])
+def test_grid_scatter_cluster_layout(n):
+    """CLUSTERS pairs, fewer where a CTA's share would fall below
+    SEGMENTS_PER_CTA, at least one."""
+    count = k9.cluster_count(n)
+    share = k9.CLUSTER * k9.SEGMENTS_PER_CTA
+    assert 1 <= count <= k9.CLUSTERS
+    assert count == k9.CLUSTERS or n <= count * share
+    assert count == 1 or n > (count - 1) * share
