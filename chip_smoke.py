@@ -98,8 +98,15 @@ failure exits non-zero:
    measurement (counters reset and read) and each design's pieces beside
    K3 `fold` from phase 3 (also timed there by CUDA graph);
 13. K6 and K7 (`probes.microbench`) at the TPU tool's sizes: K6's grouping
-   prep timed alone, each kernel against its plain version as in phase 3,
-   then the entry point's measurement with the counters reset and read;
+   prep timed alone, each kernel against its plain version as in phase 3;
+   K7 also on a ragged cut (2^20 - 3 segments in [-3, 259)) and twice
+   back to back on each input (its counter row resets), one launch a call
+   by its counter and by the profiler's count, timed by CUDA graph and
+   by calls queued back to back, beside an empty
+   kernel's graph time (the launch floor) and two library calls
+   (`torch.bincount`, and a zeroed int32 [256] `index_add_` of ones, which
+   a graph can hold); then the entry point's measurement with the counters
+   reset and read;
 14. K9 (`probes.grid_scatter`), 2^20 segments in its two input modes, each
    against the plain version as in phase 3 with its rate in M segments/s
    beside K2's on the phase 3 frame; a ragged cut with segments outside
@@ -191,7 +198,14 @@ failure exits non-zero:
    one), one shard on each card (`devices=None`) through both entry
    points: each shard's frame on its own card, the frames 0 pixels off
    `render_device`'s, launches of every kernel on every shard, ms per
-   frame with every card synchronised.
+   frame with every card synchronised;
+20. the render-target envelope (`probes.envelope.measure_size`, the
+   counterpart of `tools/envelope_probe.py:big_frames`): paris-30k at
+   paths=8000 at ENVELOPE_SIZES, 16384x8192 (where the TPU failed) and
+   32768x32768 (the largest size the probe's ladder renders on the H100), each
+   rendered cold and warm, its route, ms, DIAG_SEGS, peak memory and the
+   stage holding it, and its top-left and bottom-right 256x256 windows
+   within 1/255 of the numpy oracle's render of them.
 
 The last three lines are a JSON object with per-kernel results (K1 on the
 7680x4320 two-key frame; K3 once per specialisation, solid, styled,
@@ -221,12 +235,14 @@ it: these frames' row_lo is 0); `tile_order` is timed alone first.
 
     python3 chip_smoke.py --probe-timing DIR [DIR ...]
 
-times K8's six variants and K9's two modes instead, on this checkout's
-inputs (the TPU tools' shapes), through the port of the checkout in each
-DIR in turn (parent, change, change, parent) at that port's defaults,
-each output held bit-equal to this checkout's plain version: batched,
-synchronised and CUDA-graph ms, the wrapper's host microseconds and each
-DIR's ptxas lines for both kernels, with `index_add_` beside K9 once.
+times K8's six variants, K9's two modes and K7 (the tool's 2^20 segments
+and the ragged cut) instead, on this checkout's inputs (the TPU tools'
+shapes), through the port of the checkout in each DIR in turn (parent,
+change, change, parent) at that port's defaults, each output held
+bit-equal to this checkout's plain version: batched, synchronised and
+CUDA-graph ms, the wrapper's host microseconds and each DIR's ptxas lines
+for the three kernels, with `index_add_` beside K9 and K7 once, and the
+empty kernel's graph time.
 
     python3 chip_smoke.py --raster-timing DIR [DIR ...] [--scene ...]
 
@@ -342,6 +358,10 @@ PATHS = {
 PARIS_W, PARIS_H = 1920, 1080
 MIX_W, MIX_H = 512, 512
 N_SCATTER = 1 << 20  # K9's segments (the TPU tool's)
+N_SEG_EDGES = (1 << 20) - 3  # K7's ragged cut
+# Phase 20: the largest frame the envelope probe's ladder renders on the
+# H100 (`PERF.md`), and the size where the TPU failed.
+ENVELOPE_SIZES = ((16384, 8192), (32768, 32768))
 PARIS_SCENES = {"paris": "paris30k", "styled": "paris30k_styled",
                 "textured": "paris30k_textured"}
 
@@ -1265,6 +1285,7 @@ def microbenchmarks(device) -> tuple:
     segs = mb.seg_inputs().to(device)
     out["seg_loop"] = check_kernel("seg_loop", mb.seg_loop, mb.seg_loop_torch, (segs,),
                                    graph=True)
+    seg_loop_checks(device, segs)
     del segs
     _build.reset_launches()
     m = mb.measure(device)
@@ -1277,6 +1298,74 @@ def microbenchmarks(device) -> tuple:
         if launches[name] < 1:
             raise AssertionError(f"{name} was never launched by its entry point")
     return out, launches
+
+
+def seg_edges(n: int = N_SEG_EDGES, seed: int = 3) -> torch.Tensor:
+    """K7's ragged cut: n segments from a numpy seed in [-3, 259)."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-3, 259, n).astype(np.int32))
+
+
+def kernels_in(fn) -> tuple:
+    """(kernel launches through the CUDA runtime, names of the device
+    kernels) of one call of `fn()`, by the profiler; memory copies and
+    sets are not kernels.  A profiler session after an earlier one in the
+    same process may record no device activity, so a caller reads the
+    launches and holds the names only where there are any."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    launches = sum(e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                              "cuLaunchKernelEx") for e in events)
+    names = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.lower().startswith(("memcpy", "memset"))]
+    return launches, names
+
+
+def seg_loop_checks(device, segs) -> None:
+    """Phase 13's K7 checks: the tool's segments and the ragged cut
+    bit-equal to the plain version across two calls back to back (the
+    kernel's reset works); one launch a call by the counter and by the
+    profiler; its graph time beside the empty kernel's and the library
+    calls'."""
+    from forma_tpu_torch.ops import _build
+    from forma_tpu_torch.probes import microbench as mb
+    from forma_tpu_torch.probes import time_ms_graph
+
+    edges = seg_edges().to(device)
+    errs = []
+    for v in (segs, edges):
+        want = mb.seg_loop_torch(v)
+        got = [mb.seg_loop(v) for _ in range(2)]
+        torch.cuda.synchronize()
+        errs += [max_abs_err((g,), (want,)) for g in got]
+    if max(errs) != 0.0:
+        raise AssertionError(f"seg_loop: differs from its plain version ({max(errs)})")
+    fn = lambda: mb.seg_loop(segs)  # noqa: E731
+    _build.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    counted = _build.LAUNCHES["seg_loop"]
+    runtime_launches, names = kernels_in(fn)
+    idx, ones = segs.long(), torch.ones_like(segs)
+    flat = torch.zeros(mb.BINS, dtype=torch.int32, device=device)
+    lib = lambda: flat.index_add_(0, idx, ones)  # noqa: E731
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    say("micro", kernel="seg_loop", blocks=mb.seg_blocks(segs.numel(), sms),
+        max_abs_err_tool_ragged_back_to_back=max(errs),
+        launches_a_call=counted, profiler_launches=runtime_launches,
+        profiler_device_kernels=repr(names),
+        ms_graph=f"{time_ms_graph(fn):.4f}", ms=f"{time_ms(fn):.4f}",
+        empty_kernel_ms_graph=f"{time_ms_graph(mb.launch_floor):.4f}",
+        bincount_ms=f"{time_ms(lambda: torch.bincount(segs, minlength=mb.BINS)):.4f}",
+        index_add_ms=f"{time_ms(lib):.4f}", index_add_ms_graph=f"{time_ms_graph(lib):.4f}")
+    if counted != 1 or runtime_launches != 1 or len(names) > 1:
+        raise AssertionError(f"seg_loop: {counted} counted launches, {runtime_launches} "
+                             f"runtime launches and kernels {names} in one call, not one")
 
 
 def scatter_edges(n: int = 8 * 16384 + 3, seed: int = 3) -> tuple:
@@ -1904,6 +1993,30 @@ def svg_phase(device, card: str, direct) -> tuple:
     return out, launches
 
 
+def envelope_phase(device, card: str) -> None:
+    """Phase 20: paris-30k at paths=8000 at each of ENVELOPE_SIZES through
+    `probes.envelope.measure_size` (cold and warm renders, both windows
+    against the numpy oracle within 1/255); nothing is caught."""
+    from forma_tpu_torch import Composition
+    from forma_tpu_torch.demos import scenes
+    from forma_tpu_torch.probes import envelope as ev
+
+    for w, h in ENVELOPE_SIZES:
+        torch.cuda.empty_cache()
+        comp = Composition()
+        t = time.perf_counter()
+        scenes.paris30k(comp, w, h, paths=ev.PATHS)
+        compose_s = time.perf_counter() - t
+        row = ev.measure_size(comp, w, h, device)
+        say("envelope", card=repr(card), compose_s=f"{compose_s:.1f}",
+            **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in row.items()
+               if k not in ("tensor_bytes", "stage_peaks")},
+            **{f"bytes_{k}": v for k, v in row["tensor_bytes"].items()})
+        say("envelope", size=row["size"], stage_peak_bytes=row["stage_peaks"])
+        del comp
+    torch.cuda.empty_cache()
+
+
 def fenced_ms(fn, n: int = 5) -> list:
     """Host milliseconds of each of n calls of `fn()`, each ended by
     `torch.cuda.synchronize()`, after one warm-up."""
@@ -2362,6 +2475,7 @@ def probe_timing(roots) -> int:
     ptxas lines for both kernels; `index_add_` beside K9 once."""
     from forma_tpu_torch.probes import fold_ablate as k8
     from forma_tpu_torch.probes import grid_scatter as k9
+    from forma_tpu_torch.probes import microbench as mb
     from forma_tpu_torch.probes import time_ms_graph
 
     device = torch.device("cuda", 0)
@@ -2370,8 +2484,18 @@ def probe_timing(roots) -> int:
     want8 = {v: k8.fold_ablate_torch(u_mat, blkinfo, clear, v) for v in k8.VARIANTS}
     inputs9 = {m: tuple(t.to(device) for t in k9.scatter_inputs(m)) for m in k9.MODES}
     want9 = {m: k9.grid_scatter_torch(*a) for m, a in inputs9.items()}
+    inputs7 = {"tool": mb.seg_inputs().to(device), "ragged": seg_edges().to(device)}
+    want7 = {k: mb.seg_loop_torch(v) for k, v in inputs7.items()}
     say("probe-timing", card=repr(gpu_record()), units=k8.addressed_rows(blkinfo),
         segments=N_SCATTER)
+    segs = inputs7["tool"]
+    idx7, ones7 = segs.long(), torch.ones_like(segs)
+    flat7 = torch.zeros(mb.BINS, dtype=torch.int32, device=device)
+    lib7 = lambda: flat7.index_add_(0, idx7, ones7)  # noqa: E731
+    say("probe-timing", kernel="seg_loop", library="index_add_",
+        library_ms=f"{time_ms(lib7):.4f}", library_ms_graph=f"{time_ms_graph(lib7):.4f}",
+        bincount_ms=f"{time_ms(lambda: torch.bincount(segs, minlength=mb.BINS)):.4f}",
+        empty_kernel_ms_graph=f"{time_ms_graph(mb.launch_floor):.4f}")
     for mode, (row, cell, val) in inputs9.items():
         flat = torch.zeros(256 * 256, dtype=torch.int32, device=device)
         idx = row.long() * 256 + cell.long()
@@ -2382,23 +2506,26 @@ def probe_timing(roots) -> int:
     for root in map(os.path.abspath, roots):
         if root not in ports:
             ports[root] = import_port(root, "probes.fold_ablate", "probes.grid_scatter",
-                                      "ops._build")
-        p8, p9, build = ports[root]
+                                      "probes.microbench", "ops._build")
+        p8, p9, p7, build = ports[root]
         runs = [("fold_ablate", v, lambda v=v: p8.fold_ablate(u_mat, blkinfo, clear, v),
                  want8[v]) for v in k8.VARIANTS]
         runs += [("grid_scatter", m, lambda a=a: p9.grid_scatter(*a), want9[m])
                  for m, a in inputs9.items()]
+        runs += [("seg_loop", k, lambda v=v: p7.seg_loop(v), want7[k])
+                 for k, v in inputs7.items()]
         for name, what, fn, want in runs:
             got = fn()
+            again = fn()  # K7's counter row resets between calls
             torch.cuda.synchronize()
-            err = max_abs_err((got,), (want,))
+            err = max_abs_err((got, again), (want, want))
             say("probe-timing", port=root, kernel=name, case=what, max_abs_err=err,
                 ms=f"{time_ms(fn):.4f}", ms_sync=f"{time_ms_sync(fn):.4f}",
                 ms_graph=f"{time_ms_graph(fn):.4f}", host_us=f"{host_us(fn):.1f}")
             if err != 0.0:
                 raise AssertionError(f"{root}: {name} {what} differs from the plain version "
                                      f"({err})")
-        for needle in ("fold_ablate_kernel", "grid_scatter_kernel"):
+        for needle in ("fold_ablate_kernel", "grid_scatter_kernel", "seg_"):
             say_ptxas(f"probe-timing {root}", build.library_path().parent / "nvcc.log", needle)
     return 0
 
@@ -2602,6 +2729,9 @@ def main() -> int:
         spaceship_readback_bytes=ship["readback_bytes"],
         **{f"anim_{size}_{k}": (f"{v:.3f}" if isinstance(v, float) else v)
            for size, res in anim.items() for k, v in res.items() if k != "syncs"})
+
+    # 20. the render-target envelope
+    envelope_phase(device, card)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

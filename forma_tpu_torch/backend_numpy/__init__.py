@@ -18,4 +18,4 @@ oracle, for the demo CLI's `oracle` device and as a reference on a machine
 without the JAX package.
 """
 
-from .render import render  # noqa: F401
+from .render import render, render_window  # noqa: F401

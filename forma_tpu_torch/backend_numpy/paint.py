@@ -54,17 +54,17 @@ def paint(
     height: int,
     clear_color,
     crop=None,
+    crop_only: bool = False,
 ) -> np.ndarray:
     """Paints sorted pixel segments; returns linear-space f32 [H, W, 4].
 
     props_of(layer_id) -> Props.  crop is an optional Rect (tile-aligned).
+    With `crop_only` (a crop required) only the crop's tiles are held and
+    returned, f32 [crop rows * 16, crop tiles * 16, 4] cut to the frame:
+    the same pixels, without a frame-sized buffer.
     """
     tiles_x = -(-width // TW)
     rows = -(-height // TH)
-
-    out = np.zeros((rows * TH, tiles_x * TW, 4), dtype=np.float32)
-    cc = np.asarray(clear_color.to_array(), dtype=np.float32)
-    out[:] = cc
 
     tile_y = segs.tile_y
     hor = vert = None
@@ -75,17 +75,28 @@ def paint(
         if hor is None:
             hor, vert = crop
 
+    origin = (0, 0)  # (pixel row, pixel column) of out[0, 0]
+    if crop_only:
+        hor = range(max(hor.start, 0), min(hor.stop, tiles_x))
+        vert = range(max(vert.start, 0), min(vert.stop, rows))
+        origin = (vert.start * TH, hor.start * TW)
+        out = np.zeros((len(vert) * TH, len(hor) * TW, 4), dtype=np.float32)
+    else:
+        out = np.zeros((rows * TH, tiles_x * TW, 4), dtype=np.float32)
+    cc = np.asarray(clear_color.to_array(), dtype=np.float32)
+    out[:] = cc
+
     for row in range(rows):
         if vert is not None and not (vert.start <= row < vert.stop):
             continue
         lo = np.searchsorted(tile_y, row, side="left")
         hi = np.searchsorted(tile_y, row, side="right")
-        _paint_row(segs, lo, hi, row, tiles_x, props_of, out, cc, hor)
+        _paint_row(segs, lo, hi, row, tiles_x, props_of, out, cc, hor, origin)
 
-    return out[:height, :width]
+    return out[: height - origin[0], : width - origin[1]]
 
 
-def _paint_row(segs, lo, hi, row, tiles_x, props_of, out, clear, hor):
+def _paint_row(segs, lo, hi, row, tiles_x, props_of, out, clear, hor, origin):
     tile_x_start = hor.start if hor is not None else 0
 
     txs = segs.tile_x[lo:hi]
@@ -174,7 +185,7 @@ def _paint_row(segs, lo, hi, row, tiles_x, props_of, out, clear, hor):
         queue = next_queue
 
         # Write tile ([x, y] -> [y, x]).
-        y0 = row * TH
-        x0 = tx * TW
+        y0 = row * TH - origin[0]
+        x0 = tx * TW - origin[1]
         for ch in range(4):
             out[y0 : y0 + TH, x0 : x0 + TW, ch] = dst[ch].T

@@ -28,9 +28,14 @@ PIXEL_DOUBLE_AREA = 2 * PIXEL_AREA  # 512
 # Maximum render-target dimensions (forma/src/consts.rs:25-29).
 #
 # These are FORMAT limits (the bit-field layout below is derived from
-# them, exactly as `BitFieldMap` derives the reference's).  The 2^21 - 1
-# LAYER_LIMIT below is the key-format capacity, enforced by `Order`, not a
-# measured single-frame population.
+# them, exactly as `BitFieldMap` derives the reference's).  The measured
+# envelope of one "NVIDIA H100 80GB HBM3, 700.00 W" card
+# (`python -m forma_tpu_torch.probes.envelope`, paris-30k at paths=8000):
+# every size up to 32768x32768 renders (52 GB at the peak, reached in
+# `pack_srgb`; both far windows equal the numpy oracle); 65536x32768 runs
+# out of device memory: the frame's own f32 tensors take ~45 bytes a
+# pixel at the peak.  The 2^21 - 1 LAYER_LIMIT below is the key-format
+# capacity, enforced by `Order`, not a measured single-frame population.
 MAX_WIDTH = 1 << 16
 MAX_HEIGHT = 1 << 15
 MAX_WIDTH_SHIFT = 16

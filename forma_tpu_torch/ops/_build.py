@@ -57,6 +57,7 @@ _SIGNATURES = {
     "forma_fold_ablate": [_P] * 3 + [_I64] * 5 + [_P, _P],
     "forma_unit_stream": [_P] * 3 + [_I64, _P, _P],
     "forma_seg_loop": [_P, _I64, _I64, _P, _P, _P],
+    "forma_empty": [_P],
     "forma_grid_scatter": [_P] * 3 + [_I64] * 2 + [_P, _P],
 }
 

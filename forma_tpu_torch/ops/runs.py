@@ -101,13 +101,17 @@ def run_data(
 
     rowb = run_hi >> TX_BITS  # biased row + 1
     txb = run_hi & ((1 << TX_BITS) - 1)  # biased tile_x + 1
-    key2 = torch.where(r_valid, ((rowb << 21) | run_layer) & MASK32, sentinel)
+    # [rowb | layer] takes 12 + 21 bits at the format's 2048 tile rows: it
+    # stays int64, not cut to a u32 (which would send the last tile row's
+    # rowb 2048 to 0 and drop its virtual units); the sentinel matches no
+    # valid key (a layer slot lies below LAYER_LIMIT).
+    key2 = torch.where(r_valid, (rowb << 21) | run_layer, sentinel)
     txb_key = torch.where(r_valid, txb, sentinel)
     if presorted:
         key2_s, txb_s, rowcov_s = key2, txb_key, rowcov.long()
         inv = r.to(torch.int32)
     else:
-        # key2 < 2^32 and txb < 2^TX_BITS: the pair fits 45 bits.
+        # key2 < 2^33 and txb < 2^TX_BITS: the pair fits 46 bits.
         key = torch.where(r_valid, (key2 << TX_BITS) | txb,
                           torch.full_like(key2, TWO_KEY_SENTINEL))
         orig = torch.sort(key, stable=False).indices

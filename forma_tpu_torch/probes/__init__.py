@@ -24,14 +24,16 @@ def time_ms_graph(fn, calls: int = 20, replays: int = 5) -> float:
     `replays` of the mean per call).  No host work lies in the timed
     window, so it reads a kernel whose wrapper's host time exceeds its
     device time, where timing calls queued back to back reads the host's
-    rate.  `fn` must not synchronise with the host."""
+    rate.  `fn` must not synchronise with the host.  The warm-up runs on
+    the stream that is then captured, so state a wrapper keeps per stream
+    (K7's workspace) exists before the capture and is not part of it."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(calls):
             fn()
     graph.replay()

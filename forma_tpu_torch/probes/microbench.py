@@ -21,11 +21,16 @@ entry point), then
 
 K7, `seg_loop`: for each of S = 2^20 segments s in [0, 256),
 acc[s // 128, s % 128] += 1.0; a 256-bin histogram as f32 [2, 128]
-counts.  The kernel (counter "seg_loop") counts in shared memory with
-integer atomics, one histogram per warp, writes each block's sums to a
-partial row and adds the rows as f32 in a second pass: exact in any
-order.  Values outside [0, 256) count nowhere (the TPU kernel's
-address would leave its accumulator).
+counts.  The kernel (counter "seg_loop") is one launch over a grid sized
+to the card (`seg_blocks`): per-warp shared histograms with integer
+atomics, each block's sums added into a persistent counter row, and the
+last block (by a ticket) writes the f32 counts and zeroes the row and the
+ticket for the next call.  The row is a workspace of 257 words kept per
+(device, stream) and zeroed once, so a call allocates only its output and
+the pointer stays fixed under CUDA-graph capture.  Exact in any order.
+Values outside [0, 256) count nowhere (the TPU kernel's address would
+leave its accumulator).  `launch_floor` launches an empty kernel, the
+floor K7's time is judged against.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version (`*_torch`) for CPU tensors.  The entry point needs a CUDA card and
@@ -47,7 +52,10 @@ U = 1 << 18  # units (tpu_microbench2.py:139)
 T = 1 << 10  # active tiles (:140)
 S = 1 << 20  # segments (:171)
 BINS = 256
-SEGS_PER_BLOCK = 256 * 16  # K7 kernel: 16 segments a thread
+# K7: the least share of a block, one int4 a thread (fewer blocks than SMs
+# for short inputs).
+MIN_SEGS_PER_BLOCK = 256 * 4
+_WORKSPACES = {}  # (device index, stream) -> K7's int32 [257], zero between calls
 
 
 def unit_inputs(u: int = U, t: int = T, seed: int = 0):
@@ -118,10 +126,28 @@ def unit_stream_grouped_torch(perm, start, cov):
     return out.reshape(2 * n_tiles, 128)
 
 
+def seg_blocks(n: int, sms: int) -> int:
+    """K7's grid over n segments on a card of `sms` SMs: one block a SM,
+    fewer where a block would take under MIN_SEGS_PER_BLOCK, at least
+    one."""
+    return max(1, min(sms, -(-n // MIN_SEGS_PER_BLOCK)))
+
+
+def _workspace(device) -> torch.Tensor:
+    """K7's counter row and ticket for the current stream of `device`,
+    allocated and zeroed at its first use there (the kernel leaves it
+    zero)."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        ws = _WORKSPACES[key] = torch.zeros(BINS + 1, dtype=torch.int32, device=device)
+    return ws
+
+
 def seg_loop(segs):
     """segs i32 [S]; returns f32 [2, 128] counts of each value in [0,
-    256).  CUDA tensors launch `forma_seg_loop`; CPU tensors take
-    `seg_loop_torch`."""
+    256).  CUDA tensors launch `forma_seg_loop` once, over `seg_blocks`;
+    CPU tensors take `seg_loop_torch`."""
     if segs.dim() != 1:
         raise ValueError(f"segs: expected a vector, got shape {tuple(segs.shape)}")
     check = _build.check if segs.is_cuda else _build.check_shape
@@ -130,12 +156,21 @@ def seg_loop(segs):
         return seg_loop_torch(segs)
     _build.check_aligned(segs, "segs", 16)
     n = segs.shape[0]
-    blocks = min(max(-(-n // SEGS_PER_BLOCK), 1), 1024)
-    partial = torch.empty((blocks, BINS), dtype=torch.int32, device=segs.device)
+    sms = torch.cuda.get_device_properties(segs.device).multi_processor_count
     out = torch.empty((2, 128), dtype=torch.float32, device=segs.device)
-    _build.launch("forma_seg_loop", "seg_loop", segs.data_ptr(), n, blocks,
-                  partial.data_ptr(), out.data_ptr())
+    _build.launch("forma_seg_loop", "seg_loop", segs.data_ptr(), n,
+                  seg_blocks(n, sms), _workspace(segs.device).data_ptr(),
+                  out.data_ptr())
     return out
+
+
+def launch_floor() -> None:
+    """Launches one empty kernel on the current stream (no counter: it
+    ports nothing)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = _build.lib().forma_empty(stream)
+    if rc != 0:
+        raise RuntimeError(f"forma_empty: CUDA error {rc}")
 
 
 def seg_loop_torch(segs):
@@ -147,10 +182,11 @@ def seg_loop_torch(segs):
 
 
 def measure(device="cuda") -> dict:
-    """Times K6 (grouping prep and kernel apart) and K7 at the tool's sizes
-    on `device` (a card); returns ms per call: the kernels' device time
-    (CUDA graph replays), the prep's by calls queued back to back (its
-    range check reads two values back to the host)."""
+    """Times K6 (grouping prep and kernel apart), K7 and the empty kernel
+    (`launch_floor`) at the tool's sizes on `device` (a card); returns ms
+    per call: the kernels' device time (CUDA graph replays), the prep's by
+    calls queued back to back (its range check reads two values back to
+    the host)."""
     tile_of, cov = (x.to(device) for x in unit_inputs())
     perm, start = group_units(tile_of, T)
     res = {
@@ -160,6 +196,7 @@ def measure(device="cuda") -> dict:
     del cov
     segs = seg_inputs().to(device)
     res["seg_loop"] = time_ms_graph(lambda: seg_loop(segs))
+    res["launch_floor"] = time_ms_graph(launch_floor)
     return res
 
 
@@ -173,7 +210,8 @@ def main(argv=None):
           f"{res['unit_stream']:8.4f} ms ({U / res['unit_stream'] / 1e3:8.1f} M units/s); "
           f"grouping prep (stable sort + searchsorted): {res['group_units']:8.4f} ms")
     print(f"seg_loop: {S} segments into 256 bins: {res['seg_loop']:8.4f} ms "
-          f"({S / res['seg_loop'] / 1e3:8.1f} M segments/s)")
+          f"({S / res['seg_loop'] / 1e3:8.1f} M segments/s); "
+          f"an empty kernel: {res['launch_floor']:8.4f} ms")
 
 
 if __name__ == "__main__":

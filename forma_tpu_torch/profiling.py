@@ -91,21 +91,33 @@ def _fenced(fn, times, device, outs=None):
 
 
 @contextlib.contextmanager
+def wrapped_stages(wrap, depth: int = 1):
+    """While open, every stage of `STAGES` nested no deeper than `depth`
+    is replaced by `wrap(fn, row label)`; the originals come back on
+    exit."""
+    rows = [s for s in STAGES if s[3] <= depth]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, *_ in rows]
+    try:
+        for (mod, attr, fn), (_, _, label, _, _) in zip(saved, rows):
+            setattr(mod, attr, wrap(fn, label))
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+@contextlib.contextmanager
 def fenced_stages(device, depth: int = 1, keep=()):
     """While open, every stage of `STAGES` nested no deeper than `depth`
     runs fenced on `device`; yields ({row label: list of ms, one per call},
     {row label in `keep`: list of outputs})."""
     acc, outs = defaultdict(list), defaultdict(list)
-    rows = [s for s in STAGES if s[3] <= depth]
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, *_ in rows]
-    try:
-        for (mod, attr, fn), (_, _, label, _, _) in zip(saved, rows):
-            setattr(mod, attr, _fenced(fn, acc[label], device,
-                                         outs[label] if label in keep else None))
+
+    def fence(fn, label):
+        return _fenced(fn, acc[label], device, outs[label] if label in keep else None)
+
+    with wrapped_stages(fence, depth):
         yield acc, outs
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
 
 
 def _min_ms(fn, device, n: int = REPEATS) -> float:

@@ -282,6 +282,37 @@ def test_seg_loop_matches_pallas_and_numpy(n, seed):
     assert got.sum() == n
 
 
+def seg_edges(n: int, seed: int) -> torch.Tensor:
+    """K7's ragged cut: n segments in [-3, 259), some outside the bins."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-3, 259, n).astype(np.int32))
+
+
+@pytest.mark.parametrize("n, seed", [(1027, 4), (3, 5), (2, 6), (0, 7)])
+def test_seg_loop_ragged_out_of_range_matches_pallas(n, seed):
+    """A length not a multiple of 4 (and under 4) with values in [-3,
+    259): the port counts the values in [0, 256) as the Pallas body counts
+    them, and the rest nowhere (the TPU kernel's address would leave its
+    accumulator, so the body gets only the values in range)."""
+    segs = seg_edges(n, seed)
+    got = mb.seg_loop(segs).numpy()
+    inside = segs.numpy()[(segs.numpy() >= 0) & (segs.numpy() < mb.BINS)]
+    if inside.size:
+        np.testing.assert_array_equal(got, seg_loop_pallas(inside))
+    want = np.bincount(inside, minlength=mb.BINS).astype(np.float32).reshape(2, 128)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [0, 1, 1024, 1025, 1 << 20, 1 << 26])
+def test_seg_loop_grid(n):
+    """K7's grid: one block a SM, fewer where a block would take under
+    MIN_SEGS_PER_BLOCK, at least one."""
+    b = mb.seg_blocks(n, 132)
+    assert 1 <= b <= 132
+    assert b == 132 or b == max(1, -(-n // mb.MIN_SEGS_PER_BLOCK))
+    assert mb.seg_blocks(1 << 20, 132) == 132
+
+
 def test_microbench_cpu_dispatch_and_checks():
     _build.reset_launches()
     tile_of, cov = mb.unit_inputs(64, 8, seed=1)
@@ -301,6 +332,7 @@ def test_microbench_cpu_dispatch_and_checks():
         mb.seg_loop(segs.long())
     with pytest.raises(ValueError, match="vector"):
         mb.seg_loop(segs.reshape(10, 10))
+    assert _build.LAUNCHES["seg_loop"] == 0
 
 
 @pytest.mark.parametrize("mode", k9.MODES)
