@@ -205,7 +205,40 @@ failure exits non-zero:
    32768x32768 (the largest size the probe's ladder renders on the H100), each
    rendered cold and warm, its route, ms, DIAG_SEGS, peak memory and the
    stage holding it, and its top-left and bottom-right 256x256 windows
-   within 1/255 of the numpy oracle's render of them.
+   within 1/255 of the numpy oracle's render of them, each frame through
+   the renderer's CUDA graph (the cold call captures it); at 32768x32768
+   also one renderer's `render_device` and two `render_into` frames
+   through the damage cache (`cache_ok` false, then true: one graph), each
+   within 1/255 of the oracle's windows; then the format's limit,
+   65536x32768, beside a live graph of two of its tile rows: the capture
+   runs out of memory, evicts that graph, runs out again alone and raises,
+   and the same renderer renders the rows again equal to a fresh
+   renderer's;
+21. the compiled frame (`forma_tpu_torch/graphs.py`: on the card a frame
+   replays its key's CUDA graph), graph against eager, each configuration
+   beside the phase whose scene it reuses: paris-30k at 1920x1080 on both
+   expand paths (after phase 5), paris-30k-styled and -textured (6, 8),
+   the styled and textured mixes (7, 9), paris-30k at 7680x4320 and the
+   140,000-layer lattice on the two-key route (10), phase 15's crop and
+   two more rectangles of its 30 tile rows on one renderer (one capture
+   for the three), the spaceship's
+   SHIP_FRAMES frames through the damage cache synchronous and pipelined
+   (after 16: a graph renderer and an eager one on the same ship in
+   lockstep, the host buffers byte-equal after every frame), and the
+   animation at 1080p and 4K (17: ANIM_FRAMES `check_caps=False` frames
+   each way under `torch.cuda.set_sync_debug_mode("error")`).  Each must
+   show 0 differing pixels and an equal diag, its path's kernels launched
+   inside the replay (K4 or K1, K2, K3's specialisation; never K4 on the
+   two-key route), each a node of the recorded graph (`graph_witness`),
+   and no capture after its first frame; each prints, graph
+   beside eager (`render_device(taps={})`, or the eager renderer), ms a
+   frame as median/min/max of GRAPH_FRAMES frames in each of GRAPH_REPEATS
+   repeats (the animation also back to back, as phase 17 times it), the
+   host's CUDA calls a frame and the device's busy share (`torch.profiler`,
+   3 frames), and the capture's warm-up and recording seconds and pool
+   bytes; the summary lines come after phase 20.  Every frame of phases
+   4-18 and 20 that is not `plain=True` or `taps=` is a graph frame, and
+   phase 5's timed frames are held to be replays.
 
 The last three lines are a JSON object with per-kernel results (K1 on the
 7680x4320 two-key frame; K3 once per specialisation, solid, styled,
@@ -221,6 +254,12 @@ entry names its frame), the card's name and power limit, and the status line
     python3 chip_smoke.py --multi-card
 
 runs only phase 19 (e), on a machine with two cards or more.
+
+    python3 chip_smoke.py --graph-check
+
+runs only a quick subset of phase 21 (paris-30k at 1920x1080 on both
+paths and its three crops, the mixes, the styled mix forced two-key, the
+spaceship and the 1080p animation) and its summary.
 
     python3 chip_smoke.py --fold-timing DIR [DIR ...] [--scene paris|styled|textured|mix]
 
@@ -362,6 +401,8 @@ N_SEG_EDGES = (1 << 20) - 3  # K7's ragged cut
 # Phase 20: the largest frame the envelope probe's ladder renders on the
 # H100 (`PERF.md`), and the size where the TPU failed.
 ENVELOPE_SIZES = ((16384, 8192), (32768, 32768))
+ENVELOPE_MOVED = 16  # layers moved before the largest size's cached frames
+ENVELOPE_SPAN = (0, 2)  # tile rows rendered at the format's limit beside its capture
 PARIS_SCENES = {"paris": "paris30k", "styled": "paris30k_styled",
                 "textured": "paris30k_textured"}
 
@@ -667,12 +708,32 @@ def library_call(name: str, args):
     return None
 
 
+# K4's and K3's argument index of `row_lo` (`rasterize_blocks`, `paint_fold`).
+ROW_LO_ARG = {"rasterize": 7, "fold": 15, "fold_styled": 15, "fold_tex": 15, "fold_clip": 15}
+
+
+def row_lo_on_device(name: str, args, build=None) -> tuple:
+    """`args` of kernel `name` with an int `row_lo` made the int32 device
+    scalar that a graph frame passes: the wrapper writes an int there
+    with a fill, which would be timed with the kernel.  `build`, a port's
+    `ops._build`, leaves the int to a port whose kernels take it by
+    value (one without `row_lo_tensor`)."""
+    i = ROW_LO_ARG.get(name)
+    if (i is None or i >= len(args) or isinstance(args[i], torch.Tensor)
+            or (build is not None and not hasattr(build, "row_lo_tensor"))):
+        return args
+    return (*args[:i], torch.full((), args[i], dtype=torch.int32, device="cuda"),
+            *args[i + 1:])
+
+
 def check_kernel(name: str, kern, plain, args, graph: bool = False, **label) -> dict:
     """A kernel against its plain version on a frame's own inputs (bit-equal
     required); returns the kernels line's numbers for it.  `graph` adds
     the device time per call from CUDA graph replays (`ms_graph`, and
     `library_ms_graph` where the library call allows a graph).  `label` is
-    printed with the numbers."""
+    printed with the numbers.  K4's and K3's `row_lo` is passed as the
+    device scalar a graph frame passes (`row_lo_on_device`)."""
+    args = row_lo_on_device(name, args)
     got = kern(*args)
     torch.cuda.synchronize()
     want = plain(*args)
@@ -825,7 +886,9 @@ def circles_vs_cpu(device) -> None:
 
 def frame_path(label: str, path: str, r, comp, size, ref, n_timed: int = 5) -> dict:
     """Phases 5-9 for one path: counters reset, warm-up + timed frames
-    through Renderer.render, counters read; the frame against `ref`."""
+    through Renderer.render (each timed frame a replay of the frame's CUDA
+    graph, whose kernel nodes `graph_witness` checks), counters read; the
+    frame against `ref`."""
     from forma_tpu_torch import Color
     from forma_tpu_torch.ops import _build
 
@@ -834,17 +897,24 @@ def frame_path(label: str, path: str, r, comp, size, ref, n_timed: int = 5) -> d
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     img = r.render(comp, w, h, clear)
+    captures, replays = r.graphs.captures, r.graphs.replays
     times = []
     for _ in range(n_timed):
         t = time.perf_counter()
         img = r.render(comp, w, h, clear)
         times.append((time.perf_counter() - t) * 1e3)
     launches = dict(_build.LAUNCHES)
+    if r.graphs.captures != captures or r.graphs.replays - replays != n_timed:
+        raise AssertionError(f"{label} ({path}): the timed frames were not graph replays "
+                             f"({r.graphs.captures - captures} captures, "
+                             f"{r.graphs.replays - replays} replays)")
+    nodes = graph_witness(f"{label} ({path})", r.graphs.last_capture, PATHS[path])
     diff = np.abs(img.astype(int) - ref.astype(int))
     say(label, path=path, frame_ms_median=f"{statistics.median(times):.2f}",
         frame_ms_min=f"{min(times):.2f}", frame_ms_max=f"{max(times):.2f}",
         frames=len(times), diag=r.last_diag.tolist(),
-        max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches)
+        max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
+        graph_kernel_nodes=nodes)
     say(label, path=path, max_diff_vs_ref=int(diff.max()),
         differing_pixels=int((diff > 0).any(axis=-1).sum()),
         painted_pixels=int((img[..., :3] != 255).any(axis=-1).sum()))
@@ -901,6 +971,7 @@ def paris_variant(device, label: str, counter: str) -> tuple:
     ref, _ = r.render_device(comp, PARIS_W, PARIS_H, clear, plain=True)
     ref = ref[:PARIS_H, :PARIS_W].cpu().numpy()
     launches = frame_path(label, label, r, comp, (PARIS_W, PARIS_H), ref)
+    graph_frame(f"paris-30k-{label} 1920x1080", r, comp, (PARIS_W, PARIS_H), PATHS[label])
     return res, launches, comp
 
 
@@ -926,6 +997,7 @@ def mix_vs_cpu(device, label: str, build) -> tuple:
     want = Renderer("cpu").render(comp, MIX_W, MIX_H, clear)
     say(label, cpu_render_s=f"{time.perf_counter() - t:.1f}")
     launches = frame_path(label, label, r, comp, (MIX_W, MIX_H), want)
+    graph_frame(f"{label} 512x512", r, comp, (MIX_W, MIX_H), PATHS[label])
     return res, launches
 
 
@@ -1039,6 +1111,10 @@ def wide_frame(device, label: str, build, size, counter: str, frame_check: bool)
         if launches["rasterize"] != 0:
             raise AssertionError(f"{label}: K4 launched {launches['rasterize']} times "
                                  "on the two-key route")
+        if counter == "fold":  # 21. the compiled frame on the two-key route
+            scene = {"wide": "paris-30k", "lattice": "the 140,000-layer lattice"}[label]
+            graph_frame(f"{scene} {w}x{h} (two-key)", r, comp, size, PATHS["wide"],
+                        never=("rasterize",))
     return res, launches, r, comp
 
 
@@ -1460,6 +1536,30 @@ def count_launches(total: dict, fn):
     return out
 
 
+def stems(counts: dict) -> dict:
+    """Launch counts by kernel stem (`graphs.KERNELS`): K3's
+    specialisations (`fold_styled`, ...) count as `fold`; zeros dropped."""
+    out = {}
+    for name, v in counts.items():
+        if v:
+            out[name.split("_")[0]] = out.get(name.split("_")[0], 0) + v
+    return out
+
+
+def graph_witness(label: str, cap, kernels) -> dict:
+    """The kernel nodes of the graph whose `Capture` is `cap`, read from the
+    recorded graph itself (`FrameGraphs.witness`, which main sets): each
+    of `kernels` (launch counter names) must have a node, and the nodes
+    must equal, stem by stem, what the capture grew the launch counters
+    by (what each replay adds to them)."""
+    nodes = cap.kernel_nodes
+    missing = [k for k in kernels if not (nodes or {}).get(k.split("_")[0])]
+    if nodes is None or missing or nodes != stems(cap.launches):
+        raise AssertionError(f"{label}: the graph's kernel nodes {nodes} lack {missing} or "
+                             f"differ from its capture's launches {cap.launches}")
+    return nodes
+
+
 def crop_phase(device, comps: dict, paris) -> tuple:
     """Phase 15: paris-30k-styled and -textured at 1920x1080 (`comps`, the
     compositions of phases 6 and 8) cropped to tile rows CROP_ROWS and
@@ -1518,6 +1618,7 @@ def crop_phase(device, comps: dict, paris) -> tuple:
                 raise AssertionError(f"crop {label}: {name} was never launched")
         if label == "styled":
             launches = run
+            graph_crops("paris-30k-styled", device, comp, PATHS["crop"])
         del r, full, buf, img
 
     # K3 with a tile-skip mask: a cached paris-30k frame after 1% of its
@@ -1653,25 +1754,17 @@ def spaceship_phase(device) -> tuple:
 
 
 def frame_profile(step, frames: int) -> dict:
-    """`torch.profiler` over `frames` calls of `step()`: wall ms a frame
-    (fenced once at the end), device ms a frame (the kernels' self time),
-    the device's busy share, kernel launches and PyTorch ops a frame."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(frames):
-            step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3 / frames
-    ka = prof.key_averages()
-    device = sum(e.self_device_time_total for e in ka) / 1e3 / frames
-    return {"wall_ms_per_frame": f"{wall:.3f}", "device_ms_per_frame": f"{device:.3f}",
-            "device_busy_share": f"{device / wall:.3f}",
-            "kernel_launches_per_frame": sum(e.count for e in ka
-                                             if e.key == "cudaLaunchKernel") / frames,
-            "aten_ops_per_frame": sum(e.count for e in ka
-                                      if e.key.startswith("aten::")) / frames}
+    """`host_profile` over `frames` calls of `step()`, as printed: wall ms
+    a frame (fenced once at the end), device ms a frame (device-side
+    events' self time), the device's busy share, kernel launches (or graph
+    launches) and PyTorch ops a frame."""
+    p = host_profile(step, frames)
+    return {"wall_ms_per_frame": f"{p['wall_ms']:.3f}",
+            "device_ms_per_frame": f"{p['device_ms']:.3f}",
+            "device_busy_share": p["busy"] and f"{p['busy']:.3f}",
+            "kernel_launches_per_frame": p["host_calls"].get("cudaLaunchKernel", 0.0),
+            "graph_launches_per_frame": p["host_calls"].get("cudaGraphLaunch", 0.0),
+            "aten_ops_per_frame": p["aten_ops"]}
 
 
 def rotation(n: int, i: int) -> np.ndarray:
@@ -1831,7 +1924,9 @@ def animation_phase(device, paris) -> dict:
             raise AssertionError(f"anim {size}: the announced zoom regrew "
                                  f"{res['zoom_regrows']} times")
         out[size] = res
-        del r, rz, comp
+        del r, rz
+        graph_anim(size, comp, orders, w, h, device)
+        del comp
     return out
 
 
@@ -2013,8 +2108,117 @@ def envelope_phase(device, card: str) -> None:
                if k not in ("tensor_bytes", "stage_peaks")},
             **{f"bytes_{k}": v for k, v in row["tensor_bytes"].items()})
         say("envelope", size=row["size"], stage_peak_bytes=row["stage_peaks"])
+        if (w, h) == ENVELOPE_SIZES[-1]:
+            envelope_cache_frames(comp, w, h, device, card)
         del comp
     torch.cuda.empty_cache()
+    envelope_limit(device, card)
+
+
+def envelope_cache_frames(comp, w: int, h: int, device, card: str) -> None:
+    """Phase 20 at its largest size, on one renderer: `render_device`, then
+    two `render_into` frames of a full-frame buffer through the damage
+    cache (`cache_ok` false, then true), each after ENVELOPE_MOVED layers
+    from the middle of the scene moved, by (5, 3) and then (10, 6): the
+    first move flips the renderer to animating, whose headroom may grow
+    the buckets (a new key); the second frame replays the first's graph
+    unless it regrew.  Each frame is held against the oracle's two far
+    windows within 1/255 (re-emitted from the cache in the second); the
+    damaged tiles, graphs live, captures, evictions, the shared pool's
+    bytes, and the bytes reserved and at peak, printed."""
+    from forma_tpu_torch import Buffer, LinearLayout, Renderer
+    from forma_tpu_torch.ops import pipeline
+    from forma_tpu_torch.probes import envelope as ev
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    wins = ev.windows(w, h)
+
+    def diffs(img):  # img: a u8 [H, W, 4] tensor on the card or a numpy array
+        out = []
+        for x0, y0, ww, wh in wins:
+            win = img[y0:y0 + wh, x0:x0 + ww]
+            win = win.cpu().numpy() if isinstance(win, torch.Tensor) else win
+            want = ev.oracle_window(comp, w, h, (x0, y0, ww, wh), ev.CLEAR)
+            out.append(int(np.abs(win.astype(np.int32) - want.astype(np.int32)).max()))
+        return out
+
+    r = Renderer(device)
+    frame, _ = r.render_device(comp, w, h, ev.CLEAR)
+    got = {"render_device": diffs(frame)}
+    del frame
+    backing = np.zeros((h, w * 4), np.uint8)
+    buf = Buffer(buffer=backing, layout=LinearLayout(w, w * 4, h),
+                 layer_cache=r.create_buffer_layer_cache())
+    captures, replays = [], r.graphs.replays
+    orders = paris_orders(comp)
+    moved = orders[len(orders) // 2:len(orders) // 2 + ENVELOPE_MOVED]
+    for i in range(2):
+        shift = np.asarray([1, 0, 0, 1, 5 * (i + 1), 3 * (i + 1)], np.float32)
+        comp.set_transforms(moved, np.tile(shift, (len(moved), 1)))
+        c, regrows = r.graphs.captures, r.regrow_count
+        r.render_into(comp, buf, ev.CLEAR)
+        captures.append(r.graphs.captures - c)
+        got[f"render_into_{i}"] = diffs(backing.reshape(h, w, 4))
+    replays = r.graphs.replays - replays
+    regrew = r.regrow_count - regrows
+    say("envelope", card=repr(card), size=f"{w}x{h}",
+        then="render_device, then render_into twice on one renderer",
+        layers_moved=len(moved), damaged_tiles=int(r.last_diag[pipeline.DIAG_DMG]),
+        regrows_in_second=regrew,
+        window_max_diff=got, graphs_live=len(r.graphs),
+        captures_by_render_into=captures, replays_by_render_into=replays,
+        evictions=r.graphs.evictions, graph_pool_bytes=r.graphs.pool_bytes(),
+        reserved_bytes=torch.cuda.memory_reserved(device),
+        peak_bytes=torch.cuda.max_memory_allocated(device))
+    del r, buf, backing
+    torch.cuda.empty_cache()
+    if (max(max(v) for v in got.values()) > ev.TOLERANCE or (captures[1] and not regrew)
+            or replays < 2):
+        raise AssertionError(f"envelope {w}x{h}: cached frames differ from the oracle ({got}), "
+                             f"or the second was not a replay of the first's graph "
+                             f"({captures} captures, {replays} replays)")
+
+
+def envelope_limit(device, card: str) -> None:
+    """Phase 20's last step, at the format's limit (65536x32768): a renderer
+    first renders tile rows ENVELOPE_SPAN of the frame (a graph at the
+    frame's caps); the whole frame's capture, beside that graph, runs out
+    of the card's memory, drops the graph (`evictions`), runs alone and
+    runs out again (in its eager warm-up), and raises; the same renderer
+    then renders the span again, equal to a fresh renderer's."""
+    from forma_tpu_torch import Color, Composition, Renderer, consts
+    from forma_tpu_torch.demos import scenes
+    from forma_tpu_torch.probes import envelope as ev
+
+    clear = Color(1.0, 1.0, 1.0, 1.0)
+    w, h = consts.MAX_WIDTH, consts.MAX_HEIGHT
+    comp = Composition()
+    scenes.paris30k(comp, w, h, paths=ev.PATHS)
+    r = Renderer(device)
+    r.render_device(comp, w, h, clear, row_span=ENVELOPE_SPAN)
+    try:
+        r.render_device(comp, w, h, clear)
+    except torch.cuda.OutOfMemoryError as e:
+        error = f"{type(e).__name__}: {str(e)[:160]}"
+    else:
+        raise AssertionError(f"envelope: {w}x{h} rendered on one card")
+    torch.cuda.empty_cache()
+    captures, evictions, live = r.graphs.captures, r.graphs.evictions, len(r.graphs)
+    got = r.render_device(comp, w, h, clear, row_span=ENVELOPE_SPAN)[0].cpu().numpy()
+    want = Renderer(device).render_device(comp, w, h, clear, row_span=ENVELOPE_SPAN)[0]
+    differing = int((got != want.cpu().numpy()).any(axis=-1).sum())
+    recaptured = r.graphs.captures - captures
+    say("envelope", card=repr(card), size=f"{w}x{h}", ok=False, error=repr(error),
+        evictions=evictions, graphs_live_after_oom=live,
+        then=f"tile rows {ENVELOPE_SPAN} of the frame again on the same renderer",
+        differing_pixels_vs_fresh_renderer=differing, captures_after_oom=recaptured)
+    del comp, r
+    torch.cuda.empty_cache()
+    if differing or not evictions or live or not recaptured:
+        raise AssertionError("envelope: the capture beside a graph did not evict it, or the "
+                             "renderer did not render after running out of memory at the "
+                             "format's limit")
 
 
 def fenced_ms(fn, n: int = 5) -> list:
@@ -2446,7 +2650,8 @@ def raster_timing(roots, scene: str) -> int:
         if root not in ports:
             ports[root] = import_port(root, "ops.rasterize_kernel", "ops.rasterize", "ops._build")
         kern, stage, build = ports[root]
-        fn = lambda: kern.rasterize_blocks(*args)  # noqa: E731
+        kargs = row_lo_on_device("rasterize", args, build)
+        fn = lambda: kern.rasterize_blocks(*kargs)  # noqa: E731
         got = fn()
         torch.cuda.synchronize()
         err = max_abs_err(u32_values(*got), want)
@@ -2546,14 +2751,15 @@ def fold_timing(roots, scene: str) -> int:
     ports = {}
     for root in map(os.path.abspath, roots):
         if root not in ports:
-            (ports[root],) = import_port(root, "ops.fold_kernel")
-        fold = ports[root].paint_fold
+            ports[root] = import_port(root, "ops.fold_kernel", "ops._build")
+        fold, build = ports[root][0].paint_fold, ports[root][1]
         # A port from before the fold took src_u reads the grid row at
         # src2_u: the same row on these table-mode inputs (src_u is src2_u).
         params = inspect.signature(fold).parameters
         # A port from before the fold took row_lo: these frames' row_lo is 0.
         fargs = args if "row_lo" in params else args[:15]
         fargs = fargs if "src_u" in params else fargs[:2] + fargs[3:]
+        fargs = row_lo_on_device("fold", fargs, build)
         fn = lambda: fold(*fargs)  # noqa: E731
         got = fn()
         torch.cuda.synchronize()
@@ -2563,6 +2769,365 @@ def fold_timing(roots, scene: str) -> int:
             ms_graph=f"{time_ms_graph(fn):.4f}", host_us=f"{host_us(fn):.1f}")
         if err != 0.0:
             raise AssertionError(f"{root}: K3 differs from the plain version ({err})")
+    return 0
+
+
+# Phase 21: the compiled frame.  Each configuration runs beside the phase
+# whose scene it reuses (paris-30k takes half a minute to build), and its
+# row joins GRAPH_ROWS; the phase's summary prints them after phase 20.
+GRAPH_REPEATS, GRAPH_FRAMES = 2, 5
+GRAPH_ROWS = []
+CARD = ""  # the card's name and power limit, set by main
+HOST_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
+              "cudaMemcpyAsync", "cudaMemsetAsync")
+# Two more crop rectangles of phase 15's 30 tile rows (so the same key).
+CROP_MORE = (((0, 30), (0, 50)), ((37, 67), (60, 120)))
+
+
+def eager(r):
+    """`r` with every frame run eagerly, op by op, as `taps=` runs one
+    frame: phase 21's yardstick for frame sequences."""
+    r._frame = lambda entry, args, kwargs, scalars: entry(*args, **kwargs, **scalars)
+    return r
+
+
+def host_profile(step, frames: int = 3) -> dict:
+    """`torch.profiler` over `frames` calls of `step()`, fenced once at the
+    end: the host's CUDA calls a frame by name (HOST_CALLS), the
+    device-side events' self time a frame (a host op's own device time
+    would count its kernels twice), the device's busy share of the wall
+    time (None where the profiler recorded no device event) and PyTorch
+    ops a frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(frames):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / frames
+    ka = prof.key_averages()
+    calls = {k: sum(e.count for e in ka if e.key == k) / frames for k in HOST_CALLS}
+    dev = sum(e.self_device_time_total for e in ka
+              if str(e.device_type).endswith("CUDA")) / 1e3 / frames
+    return {"host_calls": {k: v for k, v in calls.items() if v},
+            "host_calls_total": sum(calls.values()), "device_ms": dev,
+            "busy": dev / wall if dev else None, "wall_ms": wall,
+            "aten_ops": sum(e.count for e in ka if e.key.startswith("aten::")) / frames}
+
+
+def say_graphs(label: str, row: dict) -> None:
+    """Phase 21's line for one configuration, graph beside eager."""
+    def ms(mode):
+        return {f"{mode}_ms_rep{i}": (f"{statistics.median(v):.3f}/{min(v):.3f}/{max(v):.3f}")
+                for i, v in enumerate(row["times"][mode])}
+
+    prof, cap = row["profile"], row["capture"]
+    say("graphs", config=label, card=repr(CARD), differing_pixels=row["differing_pixels"],
+        diag_equal=row["diag_equal"], launches_in_replay=row["launches"],
+        graph_kernel_nodes=cap.kernel_nodes,
+        **ms("graph"), **ms("eager"), ms_format="median/min/max",
+        host_calls_graph=prof["graph"]["host_calls"], host_calls_eager=prof["eager"]["host_calls"],
+        busy_graph=prof["graph"]["busy"] and f"{prof['graph']['busy']:.3f}",
+        busy_eager=prof["eager"]["busy"] and f"{prof['eager']['busy']:.3f}",
+        device_ms_graph=f"{prof['graph']['device_ms']:.3f}",
+        device_ms_eager=f"{prof['eager']['device_ms']:.3f}",
+        capture_warmup_s=f"{cap.warmup_s:.3f}", capture_s=f"{cap.capture_s:.3f}",
+        pool_bytes=cap.pool_bytes, **row.get("extra", {}))
+
+
+def graph_row(label: str, r, graph_step, eager_step, kernels, never=()) -> dict:
+    """Phase 21 for one frame configuration on renderer `r`: a first graph
+    frame (capturing the key if it is new); then one replay with the
+    launch counters reset and read (each of `kernels` launched inside it,
+    none of `never`, and the graph's own kernel nodes, `graph_witness`,
+    equal to that replay's launches), held against one eager frame (0
+    differing pixels, an equal diag); then GRAPH_REPEATS repeats of GRAPH_FRAMES graph frames
+    and GRAPH_FRAMES eager frames, each timed on the host (a step ends on the
+    host: synchronised); then the profiler over 3 frames of each; no
+    capture after the first frame.  Each step returns (u8 frame, diag) as
+    numpy."""
+    from forma_tpu_torch.ops import _build
+
+    graph_step()
+    captures, replays = r.graphs.captures, r.graphs.replays
+    cap = r.graphs.last_capture
+    _build.reset_launches()
+    got = graph_step()
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    replayed = r.graphs.replays - replays
+    want = eager_step()
+    row = {"config": label, "launches": launches, "capture": cap,
+           "differing_pixels": int((got[0] != want[0]).any(axis=-1).sum()),
+           "diag_equal": bool(np.array_equal(got[1], want[1])),
+           "times": {"graph": [], "eager": []}, "extra": {}}
+    for _ in range(GRAPH_REPEATS):
+        for mode, step in (("graph", graph_step), ("eager", eager_step)):
+            row["times"][mode].append([timed(step) for _ in range(GRAPH_FRAMES)])
+    row["profile"] = {mode: host_profile(step) for mode, step in
+                      (("graph", graph_step), ("eager", eager_step))}
+    row["extra"]["captures_after_first"] = r.graphs.captures - captures
+    say_graphs(label, row)
+    GRAPH_ROWS.append(row)
+    missing = [k for k in kernels if launches.get(k, 0) < 1]
+    graph_witness(f"graphs {label}", cap, kernels)
+    if (row["differing_pixels"] or not row["diag_equal"] or missing or replayed != 1
+            or any(launches.get(k) for k in never) or r.graphs.captures != captures):
+        raise AssertionError(
+            f"graphs {label}: {row['differing_pixels']} pixels differ, diag equal "
+            f"{row['diag_equal']}, kernels {missing} not in the replay ({launches}), "
+            f"{replayed} replays for one frame, or {r.graphs.captures - captures} captures "
+            "after the first frame")
+    return row
+
+
+def frame_steps(r, comp, w, h, **kw) -> tuple:
+    """(graph step, eager step) of one `render_device` frame of `comp` on
+    `r` (eager: with `taps`), each returning (u8 frame, diag) as numpy."""
+    from forma_tpu_torch import Color
+
+    clear = Color(1.0, 1.0, 1.0, 1.0)
+
+    def step(**extra):
+        frame, d = r.render_device(comp, w, h, clear, **kw, **extra)
+        return frame.cpu().numpy(), np.asarray(d)
+
+    return step, lambda: step(taps={})
+
+
+def graph_frame(label: str, r, comp, size, kernels, never=(), **kw) -> dict:
+    """Phase 21 on one `render_device` frame configuration (`graph_row`)."""
+    g, e = frame_steps(r, comp, *size, **kw)
+    return graph_row(label, r, g, e, kernels, never)
+
+
+def graph_crops(label: str, device, comp, kernels) -> None:
+    """Phase 21 on phase 15's crop (tile rows CROP_ROWS x columns
+    CROP_COLS) and the two rectangles of CROP_MORE, all 30 tile rows: the
+    renderer first renders the whole frame (its buckets then hold every
+    crop), and the three rectangles, each a `graph_row`, share one graph:
+    one capture in all."""
+    from forma_tpu_torch import Color, Renderer
+
+    r = Renderer(device)
+    r.render(comp, PARIS_W, PARIS_H, Color(1.0, 1.0, 1.0, 1.0))
+    captures = r.graphs.captures
+    for rows, cols in ((CROP_ROWS, CROP_COLS), *CROP_MORE):
+        graph_frame(f"{label} crop rows[{rows[0]},{rows[1]}) cols[{cols[0]},{cols[1]})",
+                    r, comp, (PARIS_W, PARIS_H), kernels, row_span=rows, crop_x=cols)
+    n = r.graphs.captures - captures
+    say("graphs", config=f"{label} crops", rectangles=1 + len(CROP_MORE), graphs_captured=n,
+        graphs_live=len(r.graphs))
+    if n != 1:
+        raise AssertionError(f"graphs {label}: {n} graphs captured for the crop rectangles")
+
+
+def graph_anim(size: str, comp, orders, w: int, h: int, device) -> dict:
+    """Phase 21 on phase 17's animation at one size: a graph renderer and
+    an eager one (`eager`) warm up as phase 17's does; then ANIM_FRAMES
+    states, each rendered by both with `check_caps=False` under
+    `torch.cuda.set_sync_debug_mode("error")` (a synchronising call
+    raises), frames and diagnostics compared after the loop (0 differing
+    pixels, equal diag), K4, K2 and K3 launched by the graph frames; then
+    GRAPH_REPEATS repeats, each way, of ANIM_FRAMES frames each fenced and
+    timed on the host (the host's work and the device's in turn), and of
+    ANIM_FRAMES frames back to back fenced once at the end, as phase 17
+    times them (the host's work overlapping the device's); the profiler
+    over 3 back-to-back frames of each."""
+    from forma_tpu_torch import Color, Renderer
+    from forma_tpu_torch.ops import _build
+
+    clear = Color(1.0, 1.0, 1.0, 1.0)
+    n = len(orders)
+    rg, re_ = Renderer(device), eager(Renderer(device))
+    for r in (rg, re_):
+        comp.set_transforms(orders, rotation(n, ANIM_FRAMES - 1))
+        r.render_device(comp, w, h, clear)
+        comp.set_transforms(orders, rotation(n, 0))
+        r.render_device(comp, w, h, clear)
+        r.render_device(comp, w, h, clear)
+    captures = rg.graphs.captures
+    cap = rg.graphs.last_capture
+    got, want, launches = [], [], {}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(ANIM_FRAMES):
+            comp.set_transforms(orders, rotation(n, i))
+            got.append(count_launches(
+                launches, lambda: rg.render_device(comp, w, h, clear, check_caps=False)))
+            want.append(re_.render_device(comp, w, h, clear, check_caps=False))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    differing = sum(int((a[0] != b[0]).any(dim=-1).sum()) for a, b in zip(got, want))
+    diag_equal = all(bool(torch.equal(a[1], b[1])) for a, b in zip(got, want))
+    del got, want
+
+    def frame(r, i, fence=True):
+        comp.set_transforms(orders, rotation(n, i % ANIM_FRAMES))
+        r.render_device(comp, w, h, clear, check_caps=False)
+        if fence:
+            torch.cuda.synchronize()
+
+    def loop(r):
+        for i in range(ANIM_FRAMES):
+            frame(r, i, fence=False)
+        torch.cuda.synchronize()
+
+    row = {"config": f"animated paris-30k {size} check_caps=False", "launches": launches,
+           "capture": cap, "differing_pixels": differing, "diag_equal": diag_equal,
+           "times": {"graph": [], "eager": []},
+           "extra": {"frames_under_sync_error_mode": ANIM_FRAMES}}
+    for rep in range(GRAPH_REPEATS):
+        for mode, r in (("graph", rg), ("eager", re_)):
+            row["times"][mode].append([timed(lambda: frame(r, i)) for i in range(ANIM_FRAMES)])
+            row["extra"][f"{mode}_back_to_back_ms_rep{rep}"] = (
+                f"{timed(lambda: loop(r)) / ANIM_FRAMES:.3f}")
+    it = iter(range(3 * ANIM_FRAMES))
+    row["profile"] = {mode: host_profile(lambda: frame(r, next(it), fence=False)) for mode, r
+                      in (("graph", rg), ("eager", re_))}
+    row["extra"]["captures_after_warmup"] = rg.graphs.captures - captures
+    say_graphs(row["config"], row)
+    GRAPH_ROWS.append(row)
+    missing = [k for k in PATHS["fused"] if launches.get(k, 0) < 1]
+    graph_witness(f"graphs anim {size}", cap, PATHS["fused"])
+    if differing or not diag_equal or missing or rg.graphs.captures != captures:
+        raise AssertionError(f"graphs anim {size}: {differing} pixels differ, diag equal "
+                             f"{diag_equal}, kernels {missing} never launched, or "
+                             f"{rg.graphs.captures - captures} captures after the warm-up")
+    return row
+
+
+def graph_ship(device) -> None:
+    """Phase 21 on phase 16's spaceship: for the synchronous and then the
+    pipelined damage cache, GRAPH_REPEATS sequences of SHIP_FRAMES frames,
+    each from fresh ships and renderers (SHIP_WARM warm-up frames), a
+    graph renderer and an eager one (`eager`) stepping the same ship in
+    lockstep: the host buffers byte-equal after every frame (and after
+    `flush_pending`), each frame timed on the host, K4, K2 and K3 launched
+    by the graph frames, no capture after the warm-up; the profiler over
+    10 frames of each."""
+    from forma_tpu_torch import Buffer, Color, Composition, LinearLayout, Renderer
+    from forma_tpu_torch.demos.spaceship import Spaceship
+
+    w, h = PARIS_W, PARIS_H
+    clear = Color(*SHIP_CLEAR)
+
+    def setup(graph: bool):
+        comp = Composition()
+        ship = Spaceship(width=w, height=h)
+        ship.build(comp)
+        r = Renderer(device) if graph else eager(Renderer(device))
+        backing = np.zeros((h, w * 4), np.uint8)
+        buf = Buffer(buffer=backing, layout=LinearLayout(w, w * 4, h),
+                     layer_cache=r.create_buffer_layer_cache())
+        for _ in range(SHIP_WARM):
+            ship.step()
+            r.render_into(comp, buf, clear)
+        return comp, ship, r, backing, buf
+
+    for pipelined in (False, True):
+        label = f"spaceship {'pipelined' if pipelined else 'sync'} damage cache"
+        times = {"graph": [], "eager": []}
+        launches, bad, recaptured, cap = {}, [], 0, None
+        for _ in range(GRAPH_REPEATS):
+            g, e = setup(True), setup(False)
+            captures = g[2].graphs.captures
+            cap = g[2].graphs.last_capture
+            tg, te = [], []
+            for i in range(SHIP_FRAMES):
+                for (comp, ship, r, _, buf), ts, count in ((g, tg, True), (e, te, False)):
+                    ship.step()
+
+                    def frame():
+                        r.render_into(comp, buf, clear, pipelined=pipelined)
+                    ts.append(timed(lambda: count_launches(launches, frame) if count
+                                    else frame()))
+                if not np.array_equal(g[3], e[3]):
+                    bad.append(i)
+            if pipelined:
+                g[2].flush_pending()
+                e[2].flush_pending()
+                if not np.array_equal(g[3], e[3]):
+                    bad.append(SHIP_FRAMES)
+            recaptured += g[2].graphs.captures - captures
+            times["graph"].append(tg)
+            times["eager"].append(te)
+        prof = {}
+        for mode, (comp, ship, r, _, buf) in (("graph", g), ("eager", e)):
+            prof[mode] = host_profile(lambda: (ship.step(), r.render_into(
+                comp, buf, clear, pipelined=pipelined)), 10)
+            r.flush_pending()
+        row = {"config": label, "launches": launches, "capture": cap,
+               "differing_pixels": len(bad), "diag_equal": True, "times": times,
+               "profile": prof, "extra": {"frames": SHIP_FRAMES, "frames_differing": bad,
+                                          "captures_after_warmup": recaptured}}
+        say_graphs(label, row)
+        GRAPH_ROWS.append(row)
+        missing = [k for k in PATHS["spaceship"] if launches.get(k, 0) < 1]
+        graph_witness(f"graphs {label}", cap, PATHS["spaceship"])
+        if bad or missing or recaptured:
+            raise AssertionError(f"graphs {label}: frames {bad} differ from the eager "
+                                 f"sequence, kernels {missing} never launched, or "
+                                 f"{recaptured} captures after the warm-up")
+
+
+def graph_summary() -> None:
+    """Phase 21's summary: one line a configuration (median ms of each
+    mode's first repeat, host calls a frame, busy share)."""
+    for row in GRAPH_ROWS:
+        prof = row["profile"]
+        say("graphs", summary=row["config"], card=repr(CARD),
+            graph_ms=f"{statistics.median(row['times']['graph'][0]):.3f}",
+            eager_ms=f"{statistics.median(row['times']['eager'][0]):.3f}",
+            host_calls_graph=prof["graph"]["host_calls_total"],
+            host_calls_eager=prof["eager"]["host_calls_total"],
+            busy_graph=prof["graph"]["busy"] and f"{prof['graph']['busy']:.3f}",
+            busy_eager=prof["eager"]["busy"] and f"{prof['eager']['busy']:.3f}",
+            capture_s=f"{row['capture'].warmup_s + row['capture'].capture_s:.3f}",
+            pool_bytes=row["capture"].pool_bytes,
+            **{k: v for k, v in row["extra"].items() if "back_to_back" in k})
+
+
+def graph_check(card: str) -> int:
+    """`--graph-check`: phase 21's quick subset (paris-30k at 1920x1080 on
+    both expand paths and its crops, the mixes, the styled mix forced
+    two-key, the spaceship and the 1080p animation, graph against eager),
+    then its summary and the card's line."""
+    from forma_tpu_torch import Composition, Renderer
+    from forma_tpu_torch.demos import scenes
+    from forma_tpu_torch.ops import _build, pipeline
+
+    t = time.perf_counter()
+    _build.lib()
+    say("build", seconds=f"{time.perf_counter() - t:.1f}")
+    device = torch.device("cuda", 0)
+    paris = Composition()
+    scenes.paris30k(paris, PARIS_W, PARIS_H)
+    for path in ("fused", "split"):
+        graph_frame(f"paris-30k 1920x1080 {path}", Renderer(device, expand=path), paris,
+                    (PARIS_W, PARIS_H), PATHS[path])
+    graph_crops("paris-30k", device, paris, PATHS["fused"])
+    mixes = {"mix": lambda c: scenes.styled_mix(c, 400, MIX_W, MIX_H),
+             "texmix": lambda c: scenes.textured_mix(c, 300, MIX_W, MIX_H)}
+    for label, build in mixes.items():
+        comp = Composition()
+        build(comp)
+        graph_frame(f"{label} 512x512", Renderer(device), comp, (MIX_W, MIX_H), PATHS[label])
+    real = pipeline.slot_bits_for
+    pipeline.slot_bits_for = lambda *_: 0
+    try:
+        comp = Composition()
+        mixes["mix"](comp)
+        graph_frame("mix 512x512 (two-key forced)", Renderer(device), comp, (MIX_W, MIX_H),
+                    ("expand", "grid", "fold_clip"), never=("rasterize",))
+    finally:
+        pipeline.slot_bits_for = real
+    graph_ship(device)
+    graph_anim(f"{PARIS_W}x{PARIS_H}", paris, paris_orders(paris), PARIS_W, PARIS_H, device)
+    graph_summary()
+    print(card)
     return 0
 
 
@@ -2578,6 +3143,10 @@ def main() -> int:
     ap.add_argument("--multi-card", action="store_true",
                     help="run only phase 19 (e), the sharded frames with one shard on "
                          "each card (needs two cards or more)")
+    ap.add_argument("--graph-check", action="store_true",
+                    help="run only phase 21's quick subset: paris-30k at 1920x1080 on "
+                         "both paths, its crops, the mixes, the spaceship and the "
+                         "1080p animation, graph against eager")
     ap.add_argument("--scene", choices=sorted(PARIS_SCENES) + ["mix"], default="paris",
                     help="the frame whose inputs --fold-timing or --raster-timing uses")
     opts = ap.parse_args()
@@ -2597,7 +3166,8 @@ def main() -> int:
     from forma_tpu_torch.ops import _build
 
     # 1. device record
-    card = gpu_record()
+    global CARD
+    card = CARD = gpu_record()
     if opts.multi_card:
         if torch.cuda.device_count() < 2:
             print("chip_smoke: --multi-card needs two cards or more", file=sys.stderr)
@@ -2625,6 +3195,13 @@ def main() -> int:
     for line in (lib_path.parent / "nvcc.log").read_text().splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             say("ptxas", info=line.strip())
+
+    # Every graph capture counts its kernel nodes (`graph_witness`).
+    from forma_tpu_torch.graphs import FrameGraphs
+
+    FrameGraphs.witness = True
+    if opts.graph_check:
+        return graph_check(card)
 
     # 3. paris-30k: record kernel inputs from one real frame per path
     t = time.perf_counter()
@@ -2661,6 +3238,8 @@ def main() -> int:
         path: frame_path("paris", path, rr, paris, (PARIS_W, PARIS_H), ref)
         for path, rr in renderers.items()
     }
+    for path, rr in renderers.items():  # 21. the compiled frame, each path
+        graph_frame(f"paris-30k 1920x1080 {path}", rr, paris, (PARIS_W, PARIS_H), PATHS[path])
     direct = r.render(paris, PARIS_W, PARIS_H, clear)  # phase 18's reference
     del renderers, ref
 
@@ -2710,6 +3289,7 @@ def main() -> int:
     kres.update(crop)
     del comps
     kres["fold_spaceship"], launches["spaceship"], ship = spaceship_phase(device)
+    graph_ship(device)  # 21. the spaceship, graph against eager
     anim = animation_phase(device, paris)
     del paris
 
@@ -2732,6 +3312,9 @@ def main() -> int:
 
     # 20. the render-target envelope
     envelope_phase(device, card)
+
+    # 21. the compiled frame: the rows taken beside phases 5-17
+    graph_summary()
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

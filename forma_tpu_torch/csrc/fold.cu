@@ -380,7 +380,7 @@ fold_kernel(const int32_t* __restrict__ order, const int32_t* __restrict__ ust,
             const int32_t* __restrict__ style,
             const float* __restrict__ clear, Lay lay, int64_t tiles_x,
             int64_t run_cap, int64_t n_units, float* __restrict__ out,
-            Tex tex, int row_lo) {
+            Tex tex, const int32_t* __restrict__ row_lo) {
   extern __shared__ int32_t smem[];
   int32_t* carry_s = smem;
   int32_t* run_s = carry_s + kChunk * 16;
@@ -400,11 +400,13 @@ fold_kernel(const int32_t* __restrict__ order, const int32_t* __restrict__ ust,
   // Integer global pixel coordinates (paint_pallas.py:254-262) of the first
   // pixel; the second's is xg + 1, exact below 2^24.  row_lo is the tile
   // row of the frame's first tile row (paint.py:284-288): a row-span crop
-  // renders tile rows row_lo .., and its fills evaluate at global rows.
+  // renders tile rows row_lo .., and its fills evaluate at global rows.  It
+  // is read from device memory, as JAX traces it, so that one CUDA graph
+  // of the frame serves every row span.
   float xg = 0.0f, yg = 0.0f;
   if (kStyled) {
     xg = __int2float_rn(tile_tx * 16 + 2 * qx);
-    yg = __int2float_rn((t / (int)tiles_x + row_lo) * 16 + py);
+    yg = __int2float_rn((t / (int)tiles_x + *row_lo) * 16 + py);
   }
   float clipm0 = 0.0f, clipm1 = 0.0f;
   int32_t clip_last = -1;
@@ -520,7 +522,7 @@ using FoldFn = void (*)(const int32_t*, const int32_t*, const int32_t*,
                         const int32_t*,
                         const int32_t*, const int32_t*, const int32_t*,
                         const int32_t*, const float*, Lay, int64_t, int64_t,
-                        int64_t, float*, Tex, int);
+                        int64_t, float*, Tex, const int32_t*);
 
 // Solid/Over, styled, textured, clip (fold_kernel.variant).
 const FoldFn kFold[4] = {
@@ -538,7 +540,8 @@ const FoldFn kFold[4] = {
 // when the orders are one.  layout (host memory): fr, blend,
 // ft, func, layer, cend, clipped, grad, stops, width, ms, tex; an offset of
 // -1 leaves its feature out.  virt may be null for a frame without clips,
-// atlas for a frame without textures.  row_lo: the global tile row of the
+// atlas for a frame without textures.  row_lo (device memory, one int32):
+// the global tile row of the
 // frame's tile row 0 (gradients and textures evaluate at global pixels).
 extern "C" int forma_fold(const void* order, const void* ust, const void* cnt,
                           const void* src, const void* src2, const void* virt,
@@ -548,7 +551,7 @@ extern "C" int forma_fold(const void* order, const void* ust, const void* cnt,
                           const void* clear, const void* layout,
                           int64_t n_tiles, int64_t tiles_x, int64_t run_cap,
                           int64_t n_units, void* out, const void* atlas,
-                          int64_t atlas_h, int64_t atlas_w, int64_t row_lo,
+                          int64_t atlas_h, int64_t atlas_w, const void* row_lo,
                           cudaStream_t stream) {
   const int32_t* l = static_cast<const int32_t*>(layout);
   const Lay lay = {l[0], l[1], l[2], l[3], l[4], l[5],
@@ -573,6 +576,6 @@ extern "C" int forma_fold(const void* order, const void* ust, const void* cnt,
       static_cast<const int32_t*>(carry_after),
       static_cast<const int32_t*>(tx_s), static_cast<const int32_t*>(style),
       static_cast<const float*>(clear), lay, tiles_x, run_cap, n_units,
-      static_cast<float*>(out), tex, (int)row_lo);
+      static_cast<float*>(out), tex, static_cast<const int32_t*>(row_lo));
   return (int)cudaGetLastError();
 }

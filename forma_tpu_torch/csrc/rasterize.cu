@@ -40,6 +40,8 @@
 // saturate with NaN -> 0 (cvt.rzi.s32.f32, `__float2int_rz`), as `f2i32`
 // does.  Integer fields wrap in 32 bits like the plain version's int64
 // arithmetic masked to 32 bits, so they are computed in uint32_t.
+// row_lo is one int32 in device memory, not an argument: a frame's CUDA
+// graph keeps its launch parameters, and reads the row span there.
 //
 // Bound on the H100: 8 bytes stored per segment slot, against f32
 // operations issued alone at --fmad=false (76 per find, 12 per line for
@@ -157,7 +159,8 @@ __global__ void __launch_bounds__(kThreads)
 rasterize_kernel(const uint32_t* __restrict__ params,
                  const int64_t* __restrict__ vline_ends,
                  const int64_t* __restrict__ v_total, int64_t n_lines,
-                 int64_t v_cap, int k_seg, int rows, int tiles_x, int row_lo,
+                 int64_t v_cap, int k_seg, int rows, int tiles_x,
+                 const int32_t* __restrict__ row_lo,
                  int slot_bits, int tx_bits, uint32_t* __restrict__ packed,
                  uint32_t* __restrict__ payload) {
   const int64_t v = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
@@ -165,6 +168,9 @@ rasterize_kernel(const uint32_t* __restrict__ params,
   // The whole warp searches, lanes past v_cap included.
   const Owner own = warp_owning_line(vline_ends, n_lines, v - lane, lane);
   if (v >= v_cap) return;
+  // The global tile row of the frame's row 0, read from device memory (as
+  // JAX traces it), so one CUDA graph of the frame serves every row span.
+  const int row0 = *row_lo;
   int len = 0;  // a padding vline emits nothing
   float p[kParams] = {};
   int32_t j = 0;
@@ -208,7 +214,7 @@ rasterize_kernel(const uint32_t* __restrict__ params,
       const int32_t border_y = min(y0s, y1s) >> kPixelShift;
       int32_t tile_x = border_x >> kTileShift;
       const int32_t tile_y =
-          (int32_t)((uint32_t)(border_y >> kTileShift) - (uint32_t)row_lo);
+          (int32_t)((uint32_t)(border_y >> kTileShift) - (uint32_t)row0);
       const uint32_t local_x = (uint32_t)border_x & 15u;
       const uint32_t local_y = (uint32_t)border_y & 15u;
 
@@ -240,7 +246,7 @@ rasterize_kernel(const uint32_t* __restrict__ params,
 extern "C" int forma_rasterize(const void* params, const void* vline_ends,
                                const void* v_total, int64_t n_lines,
                                int64_t v_cap, int64_t k_seg, int64_t rows,
-                               int64_t tiles_x, int64_t row_lo,
+                               int64_t tiles_x, const void* row_lo,
                                int64_t slot_bits, int64_t tx_bits,
                                void* packed, void* payload,
                                cudaStream_t stream) {
@@ -249,7 +255,8 @@ extern "C" int forma_rasterize(const void* params, const void* vline_ends,
       static_cast<const uint32_t*>(params),
       static_cast<const int64_t*>(vline_ends),
       static_cast<const int64_t*>(v_total), n_lines, v_cap, (int)k_seg,
-      (int)rows, (int)tiles_x, (int)row_lo, (int)slot_bits, (int)tx_bits,
+      (int)rows, (int)tiles_x, static_cast<const int32_t*>(row_lo),
+      (int)slot_bits, (int)tx_bits,
       static_cast<uint32_t*>(packed), static_cast<uint32_t*>(payload));
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,7 @@ machine-independent half must stay importable without a CUDA toolkit.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -35,7 +36,9 @@ NVCC_FLAGS = (
 )
 
 # Kernel launch counters: each wrapper adds one where it launches its
-# kernel, and nowhere else.
+# kernel, and nowhere else.  A CUDA graph's capture launches nothing, so it
+# takes back what its kernels' wrappers added (`capturing`), and each replay
+# adds that again (`replayed`): the counts stay launches on the card.
 LAUNCHES = {
     "expand": 0, "rasterize": 0, "grid": 0,
     # K3, one counter per specialisation (`fold_kernel.variant`)
@@ -51,8 +54,8 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "forma_expand": [_P, _P, _I64, _I64, _P, _P, _P],
     "forma_grid": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
-    "forma_fold": [_P] * 13 + [_I64] * 4 + [_P, _P, _I64, _I64, _I64, _P],
-    "forma_rasterize": [_P] * 3 + [_I64] * 8 + [_P, _P, _P],
+    "forma_fold": [_P] * 13 + [_I64] * 4 + [_P, _P, _I64, _I64, _P, _P],
+    "forma_rasterize": [_P] * 3 + [_I64] * 5 + [_P] + [_I64] * 2 + [_P, _P, _P],
     "forma_texture_probe": [_P, _P] + [_I64] * 5 + [_P, _P],
     "forma_fold_ablate": [_P] * 3 + [_I64] * 5 + [_P, _P],
     "forma_unit_stream": [_P] * 3 + [_I64, _P, _P],
@@ -67,6 +70,38 @@ _lib = None
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def capturing():
+    """Around a CUDA graph's capture: yields a dict that, on exit, holds
+    what `LAUNCHES` grew by inside (the graph's launches a replay), and
+    takes that growth back out of `LAUNCHES`."""
+    before = dict(LAUNCHES)
+    grew = {}
+    try:
+        yield grew
+    finally:
+        for k, v in before.items():
+            if LAUNCHES[k] != v:
+                grew[k] = LAUNCHES[k] - v
+            LAUNCHES[k] = v
+
+
+def replayed(grew: dict) -> None:
+    """Counts one replay of a graph whose capture grew `LAUNCHES` by `grew`."""
+    for k, v in grew.items():
+        LAUNCHES[k] += v
+
+
+def row_lo_tensor(row_lo, device) -> torch.Tensor:
+    """A kernel's `row_lo` argument as the int32 0-d tensor on `device`
+    that it reads: a tensor is checked and passed on; an int is written
+    there by a fill on the device (no upload, no sync)."""
+    if isinstance(row_lo, torch.Tensor):
+        check(row_lo, "row_lo", torch.int32, ())
+        return row_lo
+    return torch.full((), row_lo, dtype=torch.int32, device=device)
 
 
 def _nvcc() -> str:

@@ -176,12 +176,14 @@ def tile_order(cnt):
 
 def paint_fold(ust, cnt, src_u, src2_u, virt_u, grid, carry_in_s, carry_after_s,
                tx_s, style_s, clear, tiles_x: int, features, ms: int, atlas=None,
-               row_lo: int = 0):
+               row_lo=0):
     """Folds every tile's units; returns linear f32 [T, 4 * 256]
     (channel-major blocks of 256 pixels, pixel j = (y = j // 16, x = j % 16),
     at global pixel (16 * (t % tiles_x) + x, 16 * (t // tiles_x + row_lo)
     + y): `row_lo` is the global tile row of the frame's first tile row, a
-    row-span crop's first row; gradients and textures evaluate there).
+    row-span crop's first row; gradients and textures evaluate there.  It
+    is an int or an int32 0-d tensor on the device, which the kernel reads
+    there, so that a CUDA graph of the frame takes any row span).
 
     ust, cnt i32 [T]; src_u i32 [U] unit -> its grid row (run order);
     src2_u i32 [U] unit -> run in carry-chain order (the same tensor as
@@ -226,6 +228,7 @@ def paint_fold(ust, cnt, src_u, src2_u, virt_u, grid, carry_in_s, carry_after_s,
         _build.check_aligned(atlas, "atlas", 16)  # one float4 load per texel
     if U < 1 or R < 1:
         raise ValueError("paint_fold: empty unit or run table")
+    row_lo = _build.row_lo_tensor(row_lo, grid.device)
     out = torch.empty((T, 4 * 256), dtype=torch.float32, device=grid.device)
     if T:
         sms = torch.cuda.get_device_properties(grid.device).multi_processor_count
@@ -238,19 +241,20 @@ def paint_fold(ust, cnt, src_u, src2_u, virt_u, grid, carry_in_s, carry_after_s,
             carry_in_s.data_ptr(), carry_after_s.data_ptr(), tx_s.data_ptr(),
             style_s.data_ptr(), clear.data_ptr(), layout, T, tiles_x, R, U,
             out.data_ptr(), atlas.data_ptr() if features.has_texture else None,
-            ah, aw, row_lo,
+            ah, aw, row_lo.data_ptr(),
         )
     return out
 
 
 def paint_fold_torch(ust, cnt, src_u, src2_u, virt_u, grid, carry_in_s,
                      carry_after_s, tx_s, style_s, clear, tiles_x: int, features,
-                     ms: int, atlas=None, row_lo: int = 0):
+                     ms: int, atlas=None, row_lo=0):
     """Plain PyTorch version of `paint_fold`: a loop over k that advances
     every tile by one unit, with the Pallas kernel's expression trees
     (`paint_pallas.py:327-415`) and the wave fold's texture select
     (`paint.py:977-981`).  A step past a tile's count leaves its pixels
-    and clip state as they were."""
+    and clip state as they were.  It runs to the deepest count, which it
+    reads on the host: no CUDA graph runs it (graph frames launch K3)."""
     # paint imports this module, so its fill and blend trees load here.
     from .paint import _blend, _gradient_at, _texture_at
 
@@ -353,7 +357,7 @@ def paint_fold_torch(ust, cnt, src_u, src2_u, virt_u, grid, carry_in_s,
 def fold_tiles(key_u, u_valid, src_u, src2_u, virt_u, grid, carry_in_s,
                carry_after_s, tx_s, style_s, clear, rows: int, tiles_x: int,
                k_slots: int, features, ms: int, atlas=None, plain: bool = False,
-               taps=None, row_lo: int = 0, tile_skip=None):
+               taps=None, row_lo=0, tile_skip=None):
     """Prep + fold; returns the frame's tiles as linear f32 [T, TH, TW, 4]
     (the counterpart of `paint._paint_fold_pallas`, in table mode when
     `src_u is src2_u`, in assembly mode otherwise).  `atlas` is read by

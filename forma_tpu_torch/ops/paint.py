@@ -375,7 +375,7 @@ def paint(
     atlas=None,  # f32 [AH, AW, 4] linear texture atlas (texture frames)
     plain: bool = False,
     taps=None,
-    row_lo: int = 0,  # global tile row of tile row 0 (a row-span crop)
+    row_lo=0,  # global tile row of tile row 0 (a row-span crop)
     tile_skip=None,  # bool [T]: tiles to skip (damage cache / crop)
 ):
     """Returns the painted frame as linear f32 [rows*16, tiles_x*16, 4];

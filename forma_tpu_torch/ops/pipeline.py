@@ -18,11 +18,20 @@ grid row by `src_u`), as the JAX package routes them
 tile rows [row_lo, row_lo + rows): the rasterizer shifts them to the
 frame's rows, and K3 evaluates fills at the global rows.
 
+`row_lo`, the crop bounds (`crop_x`, `crop_y`) and `cache_ok` may each
+be a Python value or an int32 0-d tensor on the frame's device, as JAX
+traces them: K4 and K3 read `row_lo` in device memory, the crop masks
+compare elementwise and `cache_ok` masks the unchanged tiles, so one CUDA
+graph of a frame (`forma_tpu_torch.graphs`) serves every row span, crop
+rectangle and cache state.  The statics (sizes, caps, features,
+channels, expand, and whether a crop is given) are Python values.
+
 `render_frame_sharded` and `render_frame_sharded_lines` are the two
 multi-device frames over a `mesh.Mesh` (`forma_tpu/ops/pipeline.py:
 377-566`), in the JAX package's single-controller form: one call drives
 every shard on its device.  Nothing here reads a device value on the
-host.
+host (`tests/test_torch_graphs.py` holds the single-device frames to it):
+that is what lets a frame be captured as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -91,7 +100,7 @@ def _core(
     px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
     width: int, height: int, rows: int, tiles_x: int,
     caps: Caps, features: Features, channels,
-    row_lo: int = 0, cache=None, crop_x=None, crop_y=None,
+    row_lo=0, cache=None, crop_x=None, crop_y=None,
     expand: str = "fused", plain: bool = False, taps=None,
 ):
     params, slots, lengths, vline_ends = _ls.line_setup(
@@ -121,7 +130,7 @@ def _back(
     v_total, total_segs,  # diagnostics scalars from the front half
     st, clear, rows: int, tiles_x: int,
     caps: Caps, features: Features, channels,
-    row_lo: int = 0,  # global tile row of the frame's tile row 0
+    row_lo=0,  # global tile row of the frame's tile row 0
     cache=None,  # (prev_frame u8, prev_counts i32 [T], st_unchanged bool [SL], cache_ok)
     crop_x=None,  # (tile_x_lo, tile_x_hi): tiles outside paint nothing
     crop_y=None,  # (tile_row_lo, tile_row_hi): rows outside paint nothing
@@ -187,8 +196,7 @@ def _back(
         all_unch = torch.ones(n_tiles + 1, dtype=torch.int32, device=dev)
         all_unch.scatter_reduce_(0, tile_of, unch_u, reduce="amin")
         tile_unch = (counts == prev_counts) & (all_unch[:n_tiles] == 1)
-        if not cache_ok:
-            tile_unch = torch.zeros_like(tile_unch)
+        tile_unch = tile_unch & (cache_ok != 0)
 
     # Layer-workbench passes fused into one keep mask + ONE unit re-sort;
     # the occlusion analysis may run on the pre-clip-pass list
@@ -293,8 +301,8 @@ def render_frame(
     px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
     width: int, height: int, rows: int, tiles_x: int,
     caps: Caps, features: Features, channels,
-    row_lo: int = 0,  # first tile row to render (a row-span crop)
-    crop_x=None,  # (tile_x_lo, tile_x_hi): tile columns to paint
+    row_lo=0,  # first tile row to render (a row-span crop): int or int32 0-d tensor
+    crop_x=None,  # (tile_x_lo, tile_x_hi): tile columns to paint, ints or 0-d tensors
     expand: str = "fused",  # "fused" (K4) or "split" (K1 + PyTorch emit)
     plain: bool = False,  # run every kernel's plain PyTorch version
     taps=None,  # dict: receives each kernel's input tuple when given
@@ -310,11 +318,12 @@ def render_frame(
 
 def render_frame_cached(
     px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
-    prev_frame, prev_counts, st_unchanged, cache_ok: bool,
+    prev_frame, prev_counts, st_unchanged,
+    cache_ok,  # bool or int32 0-d tensor: False marks every tile changed
     width: int, height: int, rows: int, tiles_x: int,
     caps: Caps, features: Features, channels,
-    crop_x=None,  # (tile_x_lo, tile_x_hi): paint crop, default full
-    crop_y=None,  # (tile_row_lo, tile_row_hi): paint crop, default full
+    crop_x=None,  # (tile_x_lo, tile_x_hi): paint crop, default full; ints or 0-d tensors
+    crop_y=None,  # (tile_row_lo, tile_row_hi): paint crop, default full; the same
     expand: str = "fused", plain: bool = False, taps=None,
 ):
     """Damage-aware render: unchanged tiles re-emit `prev_frame` pixels and
@@ -323,7 +332,8 @@ def render_frame_cached(
     keep for the next frame, (dmg_idx i32 [DMG_CAP], dmg_tiles u8
     [DMG_CAP, TILE_HEIGHT, TILE_WIDTH * C])): the first diag[DIAG_DMG]
     entries are the changed tiles' indices and pixels.  `cache_ok` False
-    (no usable previous frame) marks every tile changed."""
+    (no usable previous frame, a bool or an int32 0-d tensor) marks every
+    tile changed."""
     return _core(
         px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
         width, height, rows, tiles_x, caps, features, channels,

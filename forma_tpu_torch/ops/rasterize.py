@@ -69,7 +69,7 @@ def _expand(params, vline_ends, v_total, v_cap: int, plain: bool, taps):
 
 def _expand_emit_packed(
     params, lengths, vline_ends, v_total,
-    v_cap: int, k_seg: int, rows: int, tiles_x: int, row_lo: int,
+    v_cap: int, k_seg: int, rows: int, tiles_x: int, row_lo,
     slot_bits: int, tx_bits: int, expand: str = "fused", plain: bool = False,
     taps=None,
 ):
@@ -117,7 +117,7 @@ def sort_segments(packed, payload, slot_bits: int, tx_bits: int):
     return unpack_packed_keys(packed, payload[order], slot_bits, tx_bits)
 
 
-def _emit_two_key(col, j, v_live, k_seg: int, rows: int, tiles_x: int, row_lo: int):
+def _emit_two_key(col, j, v_live, k_seg: int, rows: int, tiles_x: int, row_lo):
     """_emit_core + the two-key form (`forma_tpu/ops/rasterize.py:216-226`):
     (key_hi, key_lo, payload) int64 [k_seg, V] of u32 values, key_hi =
     (tile_y + 1) << TX_BITS | (tile_x + 1) and key_lo the layer slot;
@@ -153,7 +153,7 @@ def sort_two_key(key_hi, key_lo, payload):
 def rasterize_sort(
     params, slots, lengths, vline_ends, v_total,
     v_cap: int, k_seg: int, rows: int, tiles_x: int,
-    row_lo: int = 0, slot_bits: int = 0, expand: str = "fused",
+    row_lo=0, slot_bits: int = 0, expand: str = "fused",
     plain: bool = False, taps=None,
 ):
     """Returns sorted (key_hi, key_lo, payload) int64 [v_cap * k_seg] of u32

@@ -80,7 +80,7 @@ def _find(fi, a_over, b_over, cd_over, a, b, c, d):
     return torch.minimum(guess_a, guess_b)
 
 
-def _emit_core(col, j, v_live, k_seg: int, rows: int, tiles_x: int, row_lo: int):
+def _emit_core(col, j, v_live, k_seg: int, rows: int, tiles_x: int, row_lo):
     """Dense per-segment math over [k_seg, V]; `col(i)` is param row i as a
     [V] f32 vector.  Returns (tile_x, tile_y, slot, payload, valid)."""
     slot_v = f2i32(col(PSLOT))
@@ -155,7 +155,7 @@ def _emit_core(col, j, v_live, k_seg: int, rows: int, tiles_x: int, row_lo: int)
 
 
 def _emit_packed(
-    col, j, v_live, k_seg: int, rows: int, tiles_x: int, row_lo: int,
+    col, j, v_live, k_seg: int, rows: int, tiles_x: int, row_lo,
     slot_bits: int, tx_bits: int,
 ):
     """_emit_core + the single [rowb | slot | txb] key; returns (packed,
@@ -176,7 +176,7 @@ def _emit_packed(
 
 def rasterize_blocks(
     params, vline_ends, v_total, v_cap: int, k_seg: int, rows: int,
-    tiles_x: int, row_lo: int, slot_bits: int, tx_bits: int,
+    tiles_x: int, row_lo, slot_bits: int, tx_bits: int,
 ):
     """Returns (packed, payload) int32 [k_seg, v_cap]: the u32 words, the
     sentinel `PACKED_SENTINEL`.
@@ -185,8 +185,11 @@ def rasterize_blocks(
     [L] inclusive cumsum of per-line vline counts (dead lines repeat the
     previous end); v_total an int64 0-d tensor on the same device, the
     live vline count (it stays on the device: no host sync).  Vlines
-    v >= v_total emit only sentinels.  CUDA tensors launch
-    `forma_rasterize`; CPU tensors take `rasterize_blocks_torch`."""
+    v >= v_total emit only sentinels.  `row_lo`, the global tile row of
+    the frame's row 0, is an int or an int32 0-d tensor on the device
+    (the kernel reads it there, so a CUDA graph of the frame takes any
+    row span).  CUDA tensors launch `forma_rasterize`; CPU tensors take
+    `rasterize_blocks_torch`."""
     if not params.is_cuda:
         return rasterize_blocks_torch(
             params, vline_ends, v_total, v_cap, k_seg, rows, tiles_x, row_lo,
@@ -200,12 +203,13 @@ def rasterize_blocks(
     _build.check_aligned(params, "params", 16)  # rows load as uint4
     _build.check(vline_ends, "vline_ends", torch.int64, (L,))
     _build.check(v_total, "v_total", torch.int64, ())
+    row_lo = _build.row_lo_tensor(row_lo, params.device)
     packed = torch.empty((k_seg, v_cap), dtype=torch.int32, device=params.device)
     payload = torch.empty_like(packed)
     _build.launch(
         "forma_rasterize", "rasterize",
         params.data_ptr(), vline_ends.data_ptr(), v_total.data_ptr(),
-        L, v_cap, k_seg, rows, tiles_x, row_lo, slot_bits, tx_bits,
+        L, v_cap, k_seg, rows, tiles_x, row_lo.data_ptr(), slot_bits, tx_bits,
         packed.data_ptr(), payload.data_ptr(),
     )
     return packed, payload
@@ -213,10 +217,11 @@ def rasterize_blocks(
 
 def rasterize_blocks_torch(
     params, vline_ends, v_total, v_cap: int, k_seg: int, rows: int,
-    tiles_x: int, row_lo: int, slot_bits: int, tx_bits: int,
+    tiles_x: int, row_lo, slot_bits: int, tx_bits: int,
 ):
     """Plain PyTorch version of `rasterize_blocks`: K1's plain expansion,
-    then `_emit_packed` (the split path's emit)."""
+    then `_emit_packed` (the split path's emit); `row_lo` an int or a 0-d
+    tensor, as there."""
     pt, j = expand_params_torch(params, vline_ends, v_cap)
     v_live = torch.arange(v_cap, device=params.device) < v_total
     return _emit_packed(

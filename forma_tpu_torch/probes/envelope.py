@@ -13,11 +13,15 @@ At each size `measure_size` builds a `Renderer(device)`, calls
 `render_device` twice (cold, then warm, each ended by a synchronise), and
 reports the first call's seconds, the warm call's ms, the route (the packed
 key, or two keys where `pipeline.slot_bits_for` gives 0), DIAG_SEGS, the
-peak of `torch.cuda.max_memory_allocated()` and the top-level pipeline
-stage in which the warm call reached it, and the bytes of the frame-sized
-tensors.  It reads back only two tile-aligned windows, top-left and
-bottom-right (far tiles are where an int32 offset would first go wrong),
-and holds each against the numpy oracle's render of that window
+peak of `torch.cuda.max_memory_allocated()` over each call and the
+top-level pipeline stage in which the cold call reached its peak, and the
+bytes of the frame-sized tensors.  On a card the cold call captures the
+frame's CUDA graph (an eager warm-up frame, whose stages the peaks see,
+then the capture) and replays it; the warm call replays it, so the row
+also holds the graph's pool bytes and the bytes the allocator reserves
+after the warm call.  It reads back only two tile-aligned windows,
+top-left and bottom-right (far tiles are where an int32 offset would first
+go wrong), and holds each against the numpy oracle's render of that window
 (`backend_numpy.render_window`), given only the layers whose bounding
 boxes meet it: exact there, since a closed path adds no cover outside its
 bounding box.  Tolerance: max channel diff <= 1 (of 255).
@@ -174,13 +178,21 @@ def stage_peaks(device):
 
 
 def _render(r, comp, width, height, clear, device) -> tuple:
-    """(frame, diag, seconds, {stage: peak bytes}) of one synchronised
-    `render_device`; the peaks only on a card."""
+    """(frame, diag, seconds, {stage: peak bytes}, peak bytes of the call)
+    of one synchronised `render_device`; the peaks only on a card (None
+    off it), the stages' only where the call ran them eagerly."""
+    cuda = device.type == "cuda"
     with stage_peaks(device) as peaks:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
         t = time.perf_counter()
         frame, d = r.render_device(comp, width, height, clear)
         _sync(device)
-        return frame, d, time.perf_counter() - t, dict(peaks)
+        seconds = time.perf_counter() - t
+        # Each stage resets the peak as it starts: the call's is the most
+        # of the stages' and what came after the last reset.
+        peak = max([torch.cuda.max_memory_allocated(device), *peaks.values()]) if cuda else None
+        return frame, d, seconds, dict(peaks), peak
 
 
 def measure_size(comp: Composition, width: int, height: int, device,
@@ -191,20 +203,21 @@ def measure_size(comp: Composition, width: int, height: int, device,
     if device.type == "cuda":
         torch.cuda.init()  # the allocator's statistics exist from here on
     r = Renderer(device)
-    frame, d, first_s, cold = _render(r, comp, width, height, clear, device)
+    frame, d, first_s, cold, cold_peak = _render(r, comp, width, height, clear, device)
     del frame
-    frame, d, warm_s, warm = _render(r, comp, width, height, clear, device)
+    frame, d, warm_s, _, warm_peak = _render(r, comp, width, height, clear, device)
     row = {
         "size": f"{width}x{height}", "ok": True,
         "route": route(r._styles_cache[0].orders.shape[0], width, height),
         "first_s": first_s, "warm_ms": warm_s * 1e3, "segs": int(d[_pipe.DIAG_SEGS]),
         "regrows": r.regrow_count, "tensor_bytes": frame_tensor_bytes(width, height),
     }
-    if warm:
-        stage = max(warm, key=warm.get)
-        row.update(peak_bytes=max(max(cold.values()), warm[stage]),
-                   peak_cold_bytes=max(cold.values()), peak_warm_bytes=warm[stage],
-                   peak_stage=stage, stage_peaks=warm)
+    if cold:
+        stage = max(cold, key=cold.get)
+        row.update(peak_bytes=max(cold_peak, warm_peak), peak_cold_bytes=cold_peak,
+                   peak_warm_bytes=warm_peak, peak_stage=stage, stage_peaks=cold,
+                   graph_pool_bytes=r.graphs.pool_bytes(),
+                   reserved_bytes=torch.cuda.memory_reserved(device))
     diffs = []
     for win in windows(width, height, window):
         x0, y0, w, h = win
@@ -226,8 +239,10 @@ def row_line(row: dict) -> str:
         where = f", {row['where']}" if row["where"] else ""
         return f"{row['size']}: OUT OF MEMORY{where} ({row['error']})"
     gb = {k: v / 1e9 for k, v in row["tensor_bytes"].items()}
-    peak = (f"peak {row['peak_bytes'] / 1e9:.2f} GB (warm {row['peak_warm_bytes'] / 1e9:.2f} "
-            f"in {row['peak_stage']})" if "peak_bytes" in row else "peak not measured (CPU)")
+    peak = (f"peak {row['peak_bytes'] / 1e9:.2f} GB (cold in {row['peak_stage']}, warm "
+            f"{row['peak_warm_bytes'] / 1e9:.2f}), graph pool "
+            f"{row['graph_pool_bytes'] / 1e9:.2f} GB, reserved {row['reserved_bytes'] / 1e9:.2f} GB"
+            if "peak_bytes" in row else "peak not measured (CPU)")
     return (f"{row['size']}: OK, route {row['route']}, first {row['first_s']:.1f} s, warm "
             f"{row['warm_ms']:.1f} ms, segs={row['segs']}, {peak}; frame tensors GB: "
             + ", ".join(f"{k} {v:.2f}" for k, v in gb.items())

@@ -14,13 +14,16 @@ per path:
 
 1. the unfenced frame time (host clock around `render`, which returns the
    frame on the host), median / min / max over `--frames` frames after
-   one warm-up;
-2. the fenced stage table: every pipeline stage wrapped in
-   `torch.cuda.synchronize()` before and after, median ms over the frames;
-   nested rows ("  of which") are inside the row above them;
-3. `torch.profiler` over 2 frames: the device time of all device-side
-   events, the device's busy share of the frames' wall time, and the
-   events and host ops that take the most device time.
+   one warm-up, for the graph frame (`render`: one replay of the frame's
+   CUDA graph, `graphs.py`) and the eager frame (`render_device` with
+   `taps`, op by op, then the same readback);
+2. the fenced stage table, eager (a graph cannot be fenced inside): every
+   pipeline stage wrapped in `torch.cuda.synchronize()` before and after,
+   median ms over the frames; nested rows ("  of which") are inside the
+   row above them;
+3. `torch.profiler` over 2 frames, graph and eager: the device time of
+   all device-side events, the device's busy share of the frames' wall
+   time, and the events and host ops that take the most device time.
 
 Where the frame's [row | slot | tx] key passes 31 bits (7680x4320, for
 example), both expand paths take the two-key route (K1, the emit in
@@ -53,18 +56,28 @@ SCENES = {"paris": scenes.paris30k, "styled": scenes.paris30k_styled,
           "textured": scenes.paris30k_textured, "svg": _parsed_paris}
 
 
-def _frames(r, comp, n, size):
+def _render_eager(r, comp, size):
+    """`render`'s frame, eagerly: `taps` keep it out of its graph."""
+    w, h = size
+    frame, _ = r.render_device(comp, w, h, CLEAR, taps={})
+    return frame[:h, :w].cpu().numpy()
+
+
+def _frames(r, comp, n, size, eager=False):
     times = []
     for _ in range(n):
         t = time.perf_counter()
-        r.render(comp, *size, CLEAR)
+        if eager:
+            _render_eager(r, comp, size)
+        else:
+            r.render(comp, *size, CLEAR)
         times.append((time.perf_counter() - t) * 1e3)
     return times
 
 
 def _stage_table(r, comp, n, size):
     with fenced_stages(r.device) as (acc, _):
-        frames = _frames(r, comp, n, size)
+        frames = _frames(r, comp, n, size, eager=True)
     total = statistics.median(frames)
     print(f"  fenced frame: {total:.2f} ms (median of {n})")
     top = 0.0
@@ -76,12 +89,12 @@ def _stage_table(r, comp, n, size):
     print(f"  renderer host work, diag sync and frame readback: {total - top:.2f} ms")
 
 
-def _device_profile(r, comp, size):
+def _device_profile(r, comp, size, eager):
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        _frames(r, comp, 2, size)
+        _frames(r, comp, 2, size, eager)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     avgs = prof.key_averages()
@@ -92,7 +105,8 @@ def _device_profile(r, comp, size):
     # Device-side events (kernels, copies, memsets) only: a host op's self
     # device time repeats the time of the kernels it launched.
     busy = sum(dev_us(e) for e in avgs if str(e.device_type).endswith("CUDA")) / 1e3
-    print(f"  profiler, 2 frames: self device time {busy:.2f} ms of {wall:.2f} ms wall "
+    print(f"  profiler, 2 {'eager' if eager else 'graph'} frames: self device time "
+          f"{busy:.2f} ms of {wall:.2f} ms wall "
           f"(device busy {100 * busy / wall:.1f}%)")
     for e in sorted(avgs, key=dev_us, reverse=True)[:10]:
         print(f"    {dev_us(e) / 1e3:8.3f} ms  {e.count:5d} calls  {e.key[:90]}")
@@ -116,15 +130,21 @@ def main(argv=None):
     paths = rasterize.EXPAND_PATHS if slot_bits else rasterize.EXPAND_PATHS[:1]
     for expand in paths:
         r = Renderer(expand=expand)
-        _frames(r, comp, 1, size)  # warm-up: grows the capacity buckets
-        frames = _frames(r, comp, args.frames, size)
-        print(f"expand={expand}: unfenced frame median {statistics.median(frames):.2f} ms "
-              f"(min {min(frames):.2f}, max {max(frames):.2f}, {args.frames} frames), "
-              f"diag {r.last_diag.tolist()}, peak memory "
-              f"{torch.cuda.max_memory_allocated()} bytes")
+        _frames(r, comp, 1, size)  # warm-up: grows the buckets, captures the graph
+        for eager in (False, True):
+            frames = _frames(r, comp, args.frames, size, eager)
+            print(f"expand={expand}, {'eager' if eager else 'graph'} frames: unfenced "
+                  f"median {statistics.median(frames):.2f} ms (min {min(frames):.2f}, "
+                  f"max {max(frames):.2f}, {args.frames} frames), diag "
+                  f"{r.last_diag.tolist()}, peak memory "
+                  f"{torch.cuda.max_memory_allocated()} bytes")
+        cap = r.graphs.last_capture
+        print(f"  graph: capture {cap.warmup_s:.3f} s warm-up + {cap.capture_s:.3f} s "
+              f"recording, pool {cap.pool_bytes} bytes")
         _stage_table(r, comp, args.frames, size)
         print(f"  Renderer.profile_frame: {timings_line(r.profile_frame(comp, *size, CLEAR))}")
-        _device_profile(r, comp, size)
+        for eager in (False, True):
+            _device_profile(r, comp, size, eager)
 
 
 if __name__ == "__main__":

@@ -3,12 +3,15 @@
 
 Counterpart of `forma_tpu/profiling.py`.  The JAX package re-runs every
 stage as its own jitted program with its arguments re-plumbed; here the
-frame runs as it always does, through `Renderer.render_device`, with each
-pipeline stage in `STAGES` replaced for the frame by a wrapper that fences
-the renderer's device before and after it (`_fenced`).  A fence on a CUDA
-device is `torch.cuda.synchronize()`; on the CPU, where every op finishes
-before it returns, the host clock alone.  `python -m
-forma_tpu_torch.profile_stages` prints the same stages as a table.
+frame runs through `Renderer.render_device` eagerly (with `taps`: a CUDA
+graph cannot be fenced inside), with each pipeline stage in `STAGES`
+replaced for the frame by a wrapper that fences the renderer's device
+before and after it (`_fenced`).  A fence on a CUDA device is
+`torch.cuda.synchronize()`; on the CPU, where every op finishes before it
+returns, the host clock alone.  `Timings.fused_frame` is, as in the JAX
+package, the frame as it really runs: on a card one replay of its CUDA
+graph (`graphs.py`).  `python -m forma_tpu_torch.profile_stages` prints
+the same stages as a table, and the graph frame beside the eager one.
 """
 
 from __future__ import annotations
@@ -60,7 +63,7 @@ class Timings(NamedTuple):
     cull: float  # cull_units_keep + skip_trivial_clips_keep + _renumber_units
     paint: float  # K3
     srgb: float
-    fused_frame: float  # one render_device(check_caps=False), fenced
+    fused_frame: float  # one render_device(check_caps=False), fenced: a graph replay on a card
     dispatch_floor_ms: float  # one trivial op, fenced
     k_active: int  # the paint's active unit depth: the frame's DIAG_K
 
@@ -131,10 +134,11 @@ def _min_ms(fn, device, n: int = REPEATS) -> float:
 
 def profile_frame(renderer, composition, width, height, clear_color, channels=None):
     """Renders the frame once to settle the capacity buckets, then
-    `REPEATS` more with every top-level stage fenced; returns `Timings`
-    and stores it on `renderer.last_timings`.  Works on either sort key
-    (a two-key frame's `rasterize_sort` holds K1, the two-key emit and
-    the int64 sort)."""
+    `REPEATS` more eagerly with every top-level stage fenced, then
+    `REPEATS` graph frames (`fused_frame`); returns `Timings` and stores
+    it on `renderer.last_timings`.  Works on either sort key (a two-key
+    frame's `rasterize_sort` holds K1, the two-key emit and the int64
+    sort)."""
     channels = channels or RGBA
     dev = renderer.device
 
@@ -146,7 +150,7 @@ def profile_frame(renderer, composition, width, height, clear_color, channels=No
     per_frame = {f: [] for f in fields}
     for _ in range(REPEATS):
         with fenced_stages(dev, depth=0, keep=("_renumber_units",)) as (acc, outs):
-            _, diag = frame()
+            _, diag = frame(taps={})  # eager: taps keep the frame out of its graph
         # The paint's depth: `_renumber_units`' k_needed (JAX's cull_units[7]).
         k_active = int(outs["_renumber_units"][-1][7])
         if k_active != int(diag[_pipe.DIAG_K]):

@@ -21,6 +21,15 @@ rows) and `render_device_sharded_lines` (the lines too, with an exchange
 of segments between the shards) over a `mesh.Mesh` of the caller's
 devices, one card holding several shards where it is listed so.
 
+Compiled frames: on a CUDA device, `render_device` (and so `render`,
+`render_into` plain, strided or cropped) and the damage-cached frames
+(synchronous and pipelined) replay one CUDA graph per static key
+(`graphs.FrameGraphs`, the counterpart of the JAX package's jitted frame
+programs), captured the first time a key is seen; a capture that fails
+raises.  `plain=True` and `taps=` run the frame eagerly, op by op: they
+are the instruments the checks use, not a fallback.  A CPU renderer
+captures nothing.  The multi-device frames run eagerly.
+
 Geometry tensors are cached on the segment buffer's version and only
 re-upload when paths change; per-frame host work is O(#geometries +
 #layers).
@@ -37,6 +46,7 @@ from . import consts
 from .buffer import RGBA, Buffer, BufferLayerCache, LinearLayout
 from .buffer import normalize_channels as _normalize_channels
 from .composition import Composition
+from .graphs import FrameGraphs
 from .mesh import Mesh
 from .ops import pipeline as _pipe
 from .ops import styles as _styles
@@ -137,6 +147,8 @@ class Renderer:
         self._dmg_prefix = _DMG_PREFIX  # adaptive damage-readback prefix
         self.readback_bytes = 0  # bytes the damage-cached path read back
         self._pending = None  # in-flight pipelined frame (ticket, buffer, ...)
+        # The frame graphs, one per static key; only a CUDA renderer captures.
+        self.graphs = FrameGraphs(self.device)
 
     def _tensor(self, a) -> torch.Tensor:
         return from_numpy(a, self.device)  # a copy: host arrays may change
@@ -679,6 +691,17 @@ class Renderer:
             cache._vkey = None
         return t
 
+    def _frame(self, entry, args, kwargs, scalars):
+        """One frame of pipeline entry point `entry`: on a CUDA device a
+        replay of its graph for this key (`graphs.FrameGraphs.run`; the
+        row span, crop bounds and cache state in `scalars` become int32
+        device scalars, outside the key), and eagerly on the CPU or where `kwargs` asks
+        for the plain kernels or taps."""
+        if (self.device.type != "cuda" or kwargs.get("plain")
+                or kwargs.get("taps") is not None):
+            return entry(*args, **kwargs, **scalars)
+        return self.graphs.run(entry, args, kwargs, scalars, self._caps)
+
     def _issue_cached(self, t):
         """Queues the frame of a ticket with the current caps and its kept
         previous state, and starts the damage readback: the diagnostics,
@@ -689,12 +712,13 @@ class Renderer:
         width, height, rows, tiles_x = t["dims"]
         prev_frame, prev_counts, st_unchanged, cache_ok = t["prev"]
         crop_x, crop_y = t["crop"]
-        frame, diag, counts, dmg = _pipe.render_frame_cached(
-            *t["inputs"],
-            prev_frame, prev_counts, st_unchanged, cache_ok,
-            width, height, rows, tiles_x,
-            self._caps, t["features"], t["chans"],
-            crop_x=crop_x, crop_y=crop_y, expand=self.expand, taps=t["taps"],
+        frame, diag, counts, dmg = self._frame(
+            _pipe.render_frame_cached,
+            (*t["inputs"], prev_frame, prev_counts, st_unchanged),
+            dict(width=width, height=height, rows=rows, tiles_x=tiles_x, caps=self._caps,
+                 features=t["features"], channels=t["chans"], expand=self.expand,
+                 taps=t["taps"]),
+            dict(cache_ok=cache_ok, crop_x=crop_x, crop_y=crop_y),
         )
         pfx = self._dmg_prefix
         reads = (diag, dmg[0], dmg[1][:pfx])
@@ -801,7 +825,10 @@ class Renderer:
         `expand` says (the fused kernel packs only the one-word key), then
         the grid and fold kernels as every frame does.  On a CUDA device a
         kernel that fails to build or launch raises; nothing falls back to
-        a plain version."""
+        a plain version.  There the frame is a replay of its key's CUDA
+        graph (the regrow loop replays, reads the diagnostics, grows and
+        captures the new key), unless `plain` or `taps` asks for the eager
+        frame."""
         inputs, st_host, chans = self._whole_frame_inputs(
             composition, width, height, clear_color, channels
         )
@@ -811,11 +838,11 @@ class Renderer:
         if row_span is not None:
             row_lo = row_span[0]
             rows = row_span[1] - row_span[0]
-        return self._until_fits(lambda: _pipe.render_frame(
-            *inputs, width, height, rows, tiles_x,
-            self._caps, st_host.features, chans,
-            row_lo=row_lo, crop_x=None if crop_x is None else tuple(crop_x),
-            expand=self.expand, plain=plain, taps=taps,
+        return self._until_fits(lambda: self._frame(
+            _pipe.render_frame,
+            (*inputs, width, height, rows, tiles_x, self._caps, st_host.features, chans),
+            dict(expand=self.expand, plain=plain, taps=taps),
+            dict(row_lo=row_lo, crop_x=None if crop_x is None else tuple(crop_x)),
         ), check_caps)
 
     def _whole_frame_inputs(self, composition: Composition, width: int, height: int,
