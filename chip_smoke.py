@@ -175,30 +175,38 @@ failure exits non-zero:
 19. the multi-device frames, run right after phase 5 on its paris-30k
    composition (phases 15 and 17 move its layers), in 4 shards that all
    sit on the one card and run in turn (`devices=(card,) * 4`; every
-   time is labelled so: none is a scaling figure): (a) the row-sharded
+   time is labelled so: none is a scaling figure), each frame one replay
+   of one CUDA graph of the whole sharded frame: (a) the row-sharded
    frame (`Renderer.render_device_sharded`) and (b) the line-sharded
-   frame (`render_device_sharded_lines`), each 0 pixels off
-   `render_device` with the diag entries a max over shards keeps equal,
-   launches counted over a warm-up and 5 fenced frames (every kernel at
-   least once a shard), and K4, K2 and K3 `fold` on shard 2's own inputs
-   (K4 at rows 17, row_lo 34 on a row shard, at the frame's 68 rows from
-   row 0 on a line shard; K3 at row_lo 34) against their plain versions
-   as in phase 3; for (b) the largest exchange block against `xcap`, the
-   most segments a shard received against the frame's segments inside
-   its rows over 4, the
-   blocks' bytes a frame and the regrows; (c) ms per fenced frame
-   (median, min, max of 5 after 1 warm-up) of (a), (b), the line path at
-   one shard (its frame equal to `render_device`'s) and `render_device`,
-   with each one's peak memory, and a `torch.profiler` window of 3 frames
-   of `render_device` and of each sharded frame (wall and device ms a
-   frame, launches a frame); (d) 5 line-sharded frames with
-   `check_caps=False` under `torch.cuda.set_sync_debug_mode("warn")` (any
-   synchronising call fails), their diagnostics checked after the loop;
-   (e) on a machine with more than one card (skipped, and said so, on
-   one), one shard on each card (`devices=None`) through both entry
-   points: each shard's frame on its own card, the frames 0 pixels off
-   `render_device`'s, launches of every kernel on every shard, ms per
-   frame with every card synchronised;
+   frame (`render_device_sharded_lines`), each first run eagerly
+   (`taps=`, settling the buckets), then as a graph frame: 0 pixels off
+   `render_device` and off the eager frame, the diag equal to the eager
+   one's and, in the entries a max over shards keeps, to the single
+   frame's, 4 K4, 4 K2 and 4 K3 nodes in the graph; launches counted
+   through the replays of a warm-up and 5 fenced frames (every kernel at
+   least once a shard, no capture after the first graph frame), and K4,
+   K2 and K3 `fold` on shard 2's own inputs (K4 at rows 17, row_lo 34 on
+   a row shard, at the frame's 68 rows from row 0 on a line shard; K3 at
+   row_lo 34) against their plain versions as in phase 3; for (b) the
+   largest exchange block against `xcap`, the most segments a shard
+   received against the frame's segments inside its rows over 4, the
+   blocks' bytes a frame and the regrows; phase 21's row of each frame;
+   (c) ms per fenced graph frame (median, min, max of 5 after 1 warm-up)
+   of (a), (b), the line path at one shard (its frame equal to
+   `render_device`'s) and `render_device`, with each one's peak memory,
+   and a `torch.profiler` window of 3 frames of `render_device` and of
+   each sharded frame (wall and device ms a frame, launches a frame); (d)
+   5 line-sharded graph frames with `check_caps=False` under
+   `torch.cuda.set_sync_debug_mode("error")` (a synchronising call
+   raises), no capture among them, their diagnostics checked after the
+   loop; (e) on a machine with more than one card (skipped, and said so,
+   on one), one shard on each card (`devices=None`) through both entry
+   points, each card's piece a replay of that card's graph (the row
+   frame one a card, the line frame a front and a back a card with the
+   exchange between them): each shard's frame on its own card, the
+   frames 0 pixels off `render_device`'s, each card's graphs one K4, K2
+   and K3 node, launches of every kernel on every shard, no capture after
+   the first frame, ms per frame with every card synchronised;
 20. the render-target envelope (`probes.envelope.measure_size`, the
    counterpart of `tools/envelope_probe.py:big_frames`): paris-30k at
    paths=8000 at ENVELOPE_SIZES, 16384x8192 (where the TPU failed) and
@@ -221,15 +229,17 @@ failure exits non-zero:
    the styled and textured mixes (7, 9), paris-30k at 7680x4320 and the
    140,000-layer lattice on the two-key route (10), phase 15's crop and
    two more rectangles of its 30 tile rows on one renderer (one capture
-   for the three), the spaceship's
+   for the three), both sharded frames of phase 19 (4 shards on the one
+   card: one graph of the whole frame), the spaceship's
    SHIP_FRAMES frames through the damage cache synchronous and pipelined
    (after 16: a graph renderer and an eager one on the same ship in
    lockstep, the host buffers byte-equal after every frame), and the
    animation at 1080p and 4K (17: ANIM_FRAMES `check_caps=False` frames
    each way under `torch.cuda.set_sync_debug_mode("error")`).  Each must
    show 0 differing pixels and an equal diag, its path's kernels launched
-   inside the replay (K4 or K1, K2, K3's specialisation; never K4 on the
-   two-key route), each a node of the recorded graph (`graph_witness`),
+   inside the replay (K4 or K1, K2, K3's specialisation, once a shard on
+   the sharded frames; never K4 on the two-key route), each a node of the
+   recorded graph (`graph_witness`),
    and no capture after its first frame; each prints, graph
    beside eager (`render_device(taps={})`, or the eager renderer), ms a
    frame as median/min/max of GRAPH_FRAMES frames in each of GRAPH_REPEATS
@@ -237,8 +247,8 @@ failure exits non-zero:
    host's CUDA calls a frame and the device's busy share (`torch.profiler`,
    3 frames), and the capture's warm-up and recording seconds and pool
    bytes; the summary lines come after phase 20.  Every frame of phases
-   4-18 and 20 that is not `plain=True` or `taps=` is a graph frame, and
-   phase 5's timed frames are held to be replays.
+   4-20 that is not `plain=True` or `taps=` is a graph frame, and phase
+   5's and phase 19's timed frames are held to be replays.
 
 The last three lines are a JSON object with per-kernel results (K1 on the
 7680x4320 two-key frame; K3 once per specialisation, solid, styled,
@@ -247,13 +257,15 @@ textured, clip, and `fold` again on the 7680x4320 two-key frame, then
 phase 16 spaceship frame (its unchanged tiles skipped); K4, K2 and K3
 `fold` again on phase 18's parsed paris frame and `fold_styled` on the SVG
 sample; K4, K2 and K3 `fold` on shard 2 of phase 19's row-sharded and
-line-sharded frames; K5 in its atlas_rowsel mode; K8 `full`; K9 `independent`; each
-entry names its frame), the card's name and power limit, and the status line
+line-sharded frames, their launches counted through the graph replays;
+K5 in its atlas_rowsel mode; K8 `full`; K9 `independent`; each entry
+names its frame), the card's name and power limit, and the status line
 `{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py --multi-card
 
-runs only phase 19 (e), on a machine with two cards or more.
+runs only phase 19 (e), on a machine with two cards or more: both
+sharded frames as per-card graphs, one shard on each card.
 
     python3 chip_smoke.py --graph-check
 
@@ -354,20 +366,20 @@ KERNELS = (
      "the SVG sample document 64x64"),
     ("rasterize", "forma_tpu_torch/csrc/rasterize.cu",
      "forma_tpu/ops/expand_pallas.py:356", "rows", "rasterize_rows",
-     "paris row shard 2 of 4 (4 shards in turn on one card)"),
+     "paris row shard 2 of 4 (4 shards in turn on one card, one graph a frame)"),
     ("grid", "forma_tpu_torch/csrc/grid.cu",
      "forma_tpu/ops/grid_pallas.py:314", "rows", "grid_rows",
-     "paris row shard 2 of 4 (4 shards in turn on one card)"),
+     "paris row shard 2 of 4 (4 shards in turn on one card, one graph a frame)"),
     ("fold", "forma_tpu_torch/csrc/fold.cu", K3, "rows", "fold_rows",
-     "paris row shard 2 of 4 (4 shards in turn on one card)"),
+     "paris row shard 2 of 4 (4 shards in turn on one card, one graph a frame)"),
     ("rasterize", "forma_tpu_torch/csrc/rasterize.cu",
      "forma_tpu/ops/expand_pallas.py:356", "lines", "rasterize_lines",
-     "paris line shard 2 of 4 (4 shards in turn on one card)"),
+     "paris line shard 2 of 4 (4 shards in turn on one card, one graph a frame)"),
     ("grid", "forma_tpu_torch/csrc/grid.cu",
      "forma_tpu/ops/grid_pallas.py:314", "lines", "grid_lines",
-     "paris line shard 2 of 4 (4 shards in turn on one card)"),
+     "paris line shard 2 of 4 (4 shards in turn on one card, one graph a frame)"),
     ("fold", "forma_tpu_torch/csrc/fold.cu", K3, "lines", "fold_lines",
-     "paris line shard 2 of 4 (4 shards in turn on one card)"),
+     "paris line shard 2 of 4 (4 shards in turn on one card, one graph a frame)"),
     ("texture_probe", "forma_tpu_torch/csrc/texture_probe.cu",
      "tools/texture_fold_probe.py:157", "probe", "texture_probe", "the probe's paris shape"),
     ("fold_ablate", "forma_tpu_torch/csrc/fold_ablate.cu",
@@ -2238,19 +2250,26 @@ def fenced_ms(fn, n: int = 5) -> list:
 def sharded_phase(device, card: str, paris) -> tuple:
     """Phase 19: paris-30k at 1920x1080 (`paris`, phase 5's composition) in
     SHARDS shards, all on `device` (SHARD_LABEL).  (a) The row-sharded and
-    (b) the line-sharded frame: 0 pixels off `render_device`'s, the diag
-    equal to the single frame's where the max (or, for DIAG_SEGS on the
-    line path, the sum) over the shards keeps it, launch counters reset
-    around a warm-up and 5 fenced frames, then K4, K2 and K3 `fold` on
-    shard SHARD's own inputs against their plain versions; for (b) the
-    exchange: the largest block against `xcap`, the most segments a shard
-    received against the frame's segments inside its rows over SHARDS
-    (the skew), the bytes the blocks hold a frame, the regrows.  (c) ms
-    per fenced frame of (a), (b), the line path at one shard and
-    `render_device`, with the peak memory of each, and `frame_profile`
-    over 3 frames of `render_device` and of each sharded frame.  (d) 5
-    line-sharded frames with `check_caps=False` under the sync debug mode
-    (no synchronising call allowed), their diagnostics checked after the
+    (b) the line-sharded frame: an eager frame (`taps=`, which also
+    settles the buckets), then the first graph frame (its capture): both
+    0 pixels off `render_device`'s, the diag equal to the single frame's
+    where the max (or, for DIAG_SEGS on the line path, the sum) over the
+    shards keeps it, the graph's frame and whole diag equal to the eager
+    one's, and the graph's kernel nodes SHARDS each of K4, K2 and K3
+    (`graph_witness`); launch counters reset around a warm-up and 5 fenced
+    graph frames (every kernel at least once a shard, no capture), then
+    K4, K2 and K3 `fold` on shard SHARD's own inputs (from the eager
+    frame) against their plain versions; for (b) the exchange: the
+    largest block against `xcap`, the most segments a shard received
+    against the frame's segments inside its rows over SHARDS (the skew),
+    the bytes the blocks hold a frame, the regrows.  Phase 21's row of
+    each frame (`graph_row`: graph beside eager) follows.  (c) ms per
+    fenced frame of (a), (b), the line path at one shard and
+    `render_device`, all graph frames, with the peak memory of each, and
+    `frame_profile` over 3 frames of `render_device` and of each sharded
+    frame.  (d) 5 line-sharded frames with `check_caps=False` under
+    `torch.cuda.set_sync_debug_mode("error")` (a synchronising call
+    raises), no capture among them, their diagnostics checked after the
     loop.  Returns ({result key: numbers}, {path: launches})."""
     from forma_tpu_torch import Color, Renderer
     from forma_tpu_torch.ops import _build
@@ -2287,20 +2306,32 @@ def sharded_phase(device, card: str, paris) -> tuple:
         frame_fns[path] = functools.partial(call, paris, w, h, clear, devices=devices)
         taps = {}
         frames, d = call(paris, w, h, clear, devices=devices, taps=taps)
+        eager = torch.cat(frames)
+        gframes, gd = frame_fns[path]()
+        captures = r.graphs.captures
         torch.cuda.synchronize()
-        whole = torch.cat(frames)
+        whole = torch.cat(gframes)
         differing = int((whole[:h, :w] != single).any(-1).sum())
+        vs_eager = int((whole != eager).any(-1).sum())
         kept = [pipe.DIAG_K, pipe.DIAG_SEGS, pipe.DIAG_DMG]
         if path == "rows":
             kept.append(pipe.DIAG_VLINES)  # every row shard sees every line
+        cap = r.graphs.last_capture
+        nodes = graph_witness(f"sharded {path}", cap, PATHS[path])
         say("sharded", path=path, shards=SHARDS, on=repr(SHARD_LABEL),
             frame_shape=tuple(whole.shape), differing_pixels_vs_single=differing,
-            diag=d.tolist(), single_diag=d1.tolist(),
+            differing_pixels_vs_eager=vs_eager, diag=gd.tolist(), eager_diag=d.tolist(),
+            single_diag=d1.tolist(),
             caps=tuple(r._caps if path == "rows" else r._caps_lines),
-            regrows=r.regrow_count)
-        if differing or any(d[i] != d1[i] for i in kept):
-            raise AssertionError(f"sharded {path}: {differing} pixels off render_device, or "
-                                 f"diag {d.tolist()} against {d1.tolist()} at {kept}")
+            regrows=r.regrow_count, graphs_captured=captures, graph_kernel_nodes=nodes)
+        if (differing or vs_eager or any(gd[i] != d1[i] for i in kept)
+                or not np.array_equal(gd, d) or captures != 1
+                or any(nodes.get(k.split("_")[0]) != SHARDS for k in PATHS[path])):
+            raise AssertionError(
+                f"sharded {path}: {differing} pixels off render_device, {vs_eager} off the "
+                f"eager frame, diag {gd.tolist()} against {d1.tolist()} at {kept} and "
+                f"{d.tolist()} eager, {captures} captures for the first graph frame, or "
+                f"graph kernel nodes {nodes} not {SHARDS} each")
         args = taps[SHARD]
         want = (rows, row_lo) if path == "rows" else (rows * SHARDS, 0)
         got = (args["rasterize"][5], args["rasterize"][7])
@@ -2314,6 +2345,9 @@ def sharded_phase(device, card: str, paris) -> tuple:
             if launches[path].get(name, 0) < SHARDS:
                 raise AssertionError(f"sharded {path}: {name} launched "
                                      f"{launches[path].get(name, 0)} times")
+        if r.graphs.captures != captures:
+            raise AssertionError(f"sharded {path}: {r.graphs.captures - captures} captures "
+                                 "after the first graph frame")
         frame = f"paris-{path}-shard{SHARD}of{SHARDS}"
         out[f"rasterize_{path}"] = check_kernel(
             "rasterize", rk.rasterize_blocks, rk.rasterize_blocks_torch, args["rasterize"],
@@ -2329,7 +2363,8 @@ def sharded_phase(device, card: str, paris) -> tuple:
                 ideal_recv=f"{ideal:.1f}",
                 skew=f"{d[pipe.DIAG_XRECV] / ideal:.4f}",
                 exchange_bytes_per_frame=SHARDS ** 2 * xcap * 8, regrows=r.regrow_count)
-        del taps, args, frames, whole
+        del taps, args, frames, gframes, whole, eager
+        graph_sharded(path, r, frame_fns[path])  # 21. the sharded frame, graph beside eager
 
     # (c) the line path at one shard, and the single frame, in the same call
     r1 = Renderer(device)
@@ -2339,7 +2374,7 @@ def sharded_phase(device, card: str, paris) -> tuple:
                                                                 devices=(device,)))
     measure("single", frame_fns["single"])
     say("sharded", question="what the sharded frames cost", on=repr(SHARD_LABEL),
-        card=repr(card), lines_n1_equals_single=same,
+        card=repr(card), lines_n1_equals_single=same, frames="graph replays",
         **{k: v for key, ms in times.items() for k, v in spread(f"{key}_ms", ms).items()},
         **{f"{key}_peak_memory": v for key, v in memory.items()},
         exchange_overhead_ms=f"{statistics.median(times['lines_n1']) - statistics.median(times['single']):.3f}")
@@ -2351,34 +2386,53 @@ def sharded_phase(device, card: str, paris) -> tuple:
     # (d) no synchronising call with check_caps=False
     r = renderers["lines"]
     caps, xcap, diags = r._caps_lines, r._xcap, []
-
-    def loop():
+    captures = r.graphs.captures
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
         for _ in range(5):
             diags.append(r.render_device_sharded_lines(paris, w, h, clear, devices=devices,
                                                        check_caps=False)[1])
-
-    syncs = syncs_during(loop)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     dd = torch.stack(diags).cpu().numpy()
     overflow = [i for i, di in enumerate(dd)
                 if not r._fits(di, caps) or di[pipe.DIAG_XPAIR] > xcap]
     say("sharded", path="lines", check_caps=False, frames=len(diags),
-        syncs=sum(syncs.values()), sync_sites=syncs, overflowed_frames=overflow,
-        diag_last=dd[-1].tolist())
-    if syncs or overflow:
-        raise AssertionError(f"sharded lines, check_caps=False: synchronising calls {syncs} "
-                             f"or overflowed frames {overflow}")
+        sync_debug_mode="error", captures=r.graphs.captures - captures,
+        overflowed_frames=overflow, diag_last=dd[-1].tolist())
+    if overflow or r.graphs.captures != captures:
+        raise AssertionError(f"sharded lines, check_caps=False: overflowed frames {overflow} "
+                             f"or {r.graphs.captures - captures} captures")
     return out, launches
+
+
+def graph_sharded(path: str, r, step) -> dict:
+    """Phase 21 on one of phase 19's sharded frames on renderer `r`
+    (`graph_row`): `step()` its graph frame, the eager frame with
+    `taps={}`; each returns the shards' frames concatenated and the diag
+    as numpy."""
+    def frame(**kw):
+        frames, d = step(**kw)
+        return torch.cat(frames).cpu().numpy(), np.asarray(d)
+
+    return graph_row(f"paris-30k 1920x1080 {path}-sharded ({SHARD_LABEL})", r, frame,
+                     lambda: frame(taps={}), PATHS[path])
 
 
 def distinct_cards(paris, card: str) -> None:
     """Phase 19 (e): on a machine with more than one card, paris-30k at
     1920x1080 (`paris`) in one shard per card (`devices=None`) through
-    both sharded entry points: every shard's frame on its own card, the
-    frames moved to card 0 0 pixels off `render_device`'s, the diag
-    entries a max over shards keeps equal, every kernel of the path
-    launched at least once a shard over a warm-up and 5 fenced frames
-    (each fenced by a synchronize of every card), and ms per frame
+    both sharded entry points, each a frame of per-card graphs (the row
+    frame one graph a card, the line frame a front and a back graph a
+    card with the exchange between the replays): every shard's frame on
+    its own card, the frames moved to card 0 0 pixels off
+    `render_device`'s, the diag entries a max over shards keeps equal,
+    each card's live graphs' kernel nodes one K4, K2 and K3 (its one
+    shard's), every kernel of the path launched at least once a shard
+    over a warm-up and 5 fenced frames (each fenced by a synchronize of
+    every card), no capture after the first frame, and ms per frame
     beside `render_device` on card 0.  With one card it says so and
     checks nothing."""
     from forma_tpu_torch import Color, Renderer
@@ -2408,6 +2462,13 @@ def distinct_cards(paris, card: str) -> None:
         r = Renderer("cuda:0")
         call = functools.partial(getattr(r, method), paris, w, h, clear)
         frames, d = call()
+        cards = [r.graphs_on(torch.device("cuda", i)) for i in range(n)]
+        captures = [g.captures for g in cards]
+        nodes = [{} for _ in cards]
+        for i, g in enumerate(cards):
+            for live in g._graphs.values():
+                for k, v in (live.capture.kernel_nodes or {}).items():
+                    nodes[i][k] = nodes[i].get(k, 0) + v
         placed = [str(f.device) for f in frames]
         whole = torch.cat([f.to("cuda:0") for f in frames])
         differing = int((whole[:h, :w] != single).any(-1).sum())
@@ -2417,18 +2478,24 @@ def distinct_cards(paris, card: str) -> None:
         _build.reset_launches()
         times[path] = fenced(call)
         launches = dict(_build.LAUNCHES)
+        recaptured = sum(g.captures for g in cards) - sum(captures)
         say("sharded", path=path, on=repr(label), card=repr(card), shards_on=placed,
             differing_pixels_vs_single=differing, diag=d.tolist(), single_diag=d1.tolist(),
             launches={k: v for k, v in launches.items() if v},
+            graphs_per_card=[len(g) for g in cards], graph_kernel_nodes_per_card=nodes,
+            captures_after_first=recaptured,
             regrows=r.regrow_count, **spread(f"{path}_ms", times[path]),
             **spread("single_ms", times["single"]))
         if (placed != [f"cuda:{i}" for i in range(n)] or differing
                 or any(d[i] != d1[i] for i in kept)
-                or any(launches.get(k, 0) < 6 * n for k in PATHS[path])):
+                or any(launches.get(k, 0) < 6 * n for k in PATHS[path])
+                or any(nd != {"rasterize": 1, "grid": 1, "fold": 1} for nd in nodes)
+                or recaptured):
             raise AssertionError(
                 f"sharded {path} on {n} cards: shards on {placed}, {differing} pixels off "
                 f"render_device, diag {d.tolist()} against {d1.tolist()} at {kept}, "
-                f"launches {launches}")
+                f"launches {launches}, kernel nodes by card {nodes}, or {recaptured} "
+                "captures after the first frame")
         del frames, whole
 
 
@@ -3172,6 +3239,9 @@ def main() -> int:
         if torch.cuda.device_count() < 2:
             print("chip_smoke: --multi-card needs two cards or more", file=sys.stderr)
             return 2
+        from forma_tpu_torch.graphs import FrameGraphs
+
+        FrameGraphs.witness = True  # each card's graphs count their kernel nodes
         paris = Composition()
         scenes.paris30k(paris, PARIS_W, PARIS_H)
         distinct_cards(paris, card)

@@ -1,25 +1,34 @@
-"""CUDA graphs of the single-device frames: the counterpart of `jax.jit`'s
-executable cache.
+"""CUDA graphs of the frames: the counterpart of `jax.jit`'s executable
+cache.
 
-The JAX package compiles each single-device frame entry point
-(`forma_tpu/ops/pipeline.py:319-375`, `render_frame` and
-`render_frame_cached`) once per static key, and a frame is one dispatch of
-that program (`forma_tpu/profiling.py:3-4`).  On the card the counterpart
-is a CUDA graph: `FrameGraphs.run` captures a frame once per key and
-replays it once per frame, with every hand-written kernel of the frame
-(K4, or K1 and the emit; K2; K3) and every PyTorch op inside the replay.
+The JAX package compiles each frame entry point
+(`forma_tpu/ops/pipeline.py:319-433`: `render_frame`,
+`render_frame_cached`, `render_frame_sharded` and
+`render_frame_sharded_lines`) once per static key, and a frame is one
+dispatch of that program (`forma_tpu/profiling.py:3-4`).  On the card the
+counterpart is a CUDA graph: `FrameGraphs.run` captures a frame once per
+key and replays it once per frame, with every hand-written kernel of the
+frame (K4, or K1 and the emit; K2; K3) and every PyTorch op inside the
+replay.  A CUDA graph belongs to one card, so a renderer keeps one
+`FrameGraphs` a card: a sharded frame whose shards all sit on the
+renderer's card is one graph of the whole entry point (its collectives
+are copies on that card), and one whose shards sit on several cards
+replays each card's graph of its piece (`pipeline.row_shards`, or
+`line_front` and `line_back` with the exchange run between the
+replays).
 
 The key is the entry point, the device, every argument that is not a
 tensor (width, height, rows, tiles_x, caps, features, channels, expand:
-JAX's statics), the arguments' structure (so a crop given and one not
-given key apart, as JAX's pytree does) and every input tensor's shape and
-dtype; the style-table dict's tensors are inputs like the rest.  The row
-span, the crop bounds and the damage cache's `cache_ok` are not in it:
-they are `scalars`, int32 0-d tensors on the device that the frame reads
-(K4 and K3 read `row_lo` there, the crop masks compare elementwise,
-`cache_ok` masks the unchanged tiles), filled before each replay, so one
-graph serves every row span, crop rectangle and cache state, as one JAX
-executable does.
+JAX's statics; a sharded frame's mesh, by its devices, and `xcap`; a
+card's piece, its shards), the arguments' structure (so a crop given and
+one not given key apart, as JAX's pytree does) and every input tensor's
+shape, dtype and device; the style-table dict's tensors are inputs like
+the rest.  The row span, the crop bounds and the damage cache's
+`cache_ok` are not in it: they are `scalars`, int32 0-d tensors on the
+device that the frame reads (K4 and K3 read `row_lo` there, the crop
+masks compare elementwise, `cache_ok` masks the unchanged tiles), filled
+before each replay, so one graph serves every row span, crop rectangle
+and cache state, as one JAX executable does.
 
 A graph holds its static input buffers, which each frame fills with
 `copy_` (an input that is the very tensor copied last time, unmodified
@@ -37,15 +46,18 @@ reuse what another's capture freed, and the pool holds about one frame's
 peak plus each live graph's outputs (JAX's executables hold no buffers).
 The pool keeps every block it has taken while any of its graphs lives, so
 the cache is bounded: `BOUND` graphs, the least recently used dropped
-first; a capture at new caps first drops the graphs of the caps it
-supersedes (a renderer's buckets only grow); and a frame that runs out of
-memory beside other graphs drops them all, which frees the pool, and runs
-again alone: a capture, not an eager frame.  Only a capture into an empty
-set runs a warm-up, one eager frame on a side stream, as PyTorch's
-documentation prescribes.  Cached blocks (a dropped pool's too) are
-released (`torch.cuda.empty_cache()`) before the warm-up and again before
+first; a capture at new buckets first drops the graphs of the buckets
+it supersedes (a renderer's buckets only grow; a bucket set is named, so
+the line-sharded frame's per-shard buckets and `xcap` supersede only the
+graphs that read them); and a frame that runs out of memory beside other
+graphs drops them all, which frees the pool, and runs again alone: a
+capture, not an eager frame.  Only a capture into an empty set runs a
+warm-up, one eager frame on a side stream, as PyTorch's documentation
+prescribes.  Cached blocks (a dropped pool's too) are released
+(`torch.cuda.empty_cache()`) before the warm-up and again before
 `torch.cuda.graph` records, so that a large frame's warm-up and its graph
-do not both hold memory.
+do not both hold memory.  Each `FrameGraphs` records on a stream of its
+own card.
 Alone, a failure in either raises: nothing falls back to the eager frame.
 
 With `witness` set (`FrameGraphs.witness`, off by default), each capture
@@ -138,9 +150,12 @@ class _Graph:
     """One captured frame: static inputs (tensor leaves), static scalars,
     the graph, its static outputs and its `Capture`."""
 
-    def __init__(self, caps, leaves, scalars, device):
-        self.caps = caps
-        self.leaves = [x.clone() if isinstance(x, torch.Tensor) else x for x in leaves]
+    def __init__(self, buckets, leaves, scalars, device):
+        self.buckets = buckets
+        # On the graph's card, which may not be the inputs' (`load` copies
+        # across cards).
+        self.leaves = [x.to(device, copy=True) if isinstance(x, torch.Tensor) else x
+                       for x in leaves]
         # (weakref, version) of the tensor each static input last copied
         self.seen = [(weakref.ref(x), x._version) if isinstance(x, torch.Tensor) else None
                      for x in leaves]
@@ -177,7 +192,7 @@ class FrameGraphs:
     """One renderer's frame graphs on a CUDA `device` (see the module's
     text).  `captures` and `replays` count the captures and replays made,
     `evictions` the graphs dropped to make room (the bound, or memory;
-    not the graphs of superseded caps), and
+    not the graphs of superseded buckets), and
     `last_capture` is the `Capture` of the graph the latest frame
     replayed."""
 
@@ -187,6 +202,10 @@ class FrameGraphs:
         self.device = torch.device(device)
         self._graphs = OrderedDict()
         self._pool = None  # the live graphs' shared memory pool
+        # The stream captures record on: this card's own (`torch.cuda.graph`'s
+        # default is one stream for the process, made on the first card that
+        # captured, and a capture on another card then launches outside it).
+        self._stream = None
         self._pool_bytes = 0  # what their captures grew it by
         self.captures = 0
         self.replays = 0
@@ -210,27 +229,29 @@ class FrameGraphs:
         shapes = tuple((n, _scalar_shape(v)) for n, v in sorted(scalars.items()))
         return (fn, self.device, spec, sig, shapes), leaves, spec
 
-    def run(self, fn, args, kwargs, scalars, caps):
+    def run(self, fn, args, kwargs, scalars, buckets):
         """One frame of `fn(*args, **kwargs, **scalars)` as a graph replay,
         captured first if its key is new; returns clones of its outputs.
         `scalars` maps argument names to None, an int or a tuple of ints,
-        passed to `fn` as int32 0-d device tensors; `caps` are the frame's
-        buckets (a capture drops the graphs of other caps).  Out of memory
-        beside other graphs, it drops them all and runs again alone."""
+        passed to `fn` as int32 0-d device tensors; `buckets` names the
+        bucket set the frame reads and its values, `(name, *values)` (a
+        capture drops the graphs of the same name at other values).  Out
+        of memory beside other graphs, it drops them all and runs again
+        alone."""
         key, leaves, spec = self.key(fn, args, kwargs, scalars)
         try:
-            return self._replay(key, fn, leaves, spec, scalars, caps)
+            return self._replay(key, fn, leaves, spec, scalars, buckets)
         except torch.cuda.OutOfMemoryError:
             if all(k == key for k in self._graphs):
                 raise
         # Outside the handler, so that its traceback holds no graph.
         self._drop(list(self._graphs))
-        return self._replay(key, fn, leaves, spec, scalars, caps)
+        return self._replay(key, fn, leaves, spec, scalars, buckets)
 
-    def _replay(self, key, fn, leaves, spec, scalars, caps):
+    def _replay(self, key, fn, leaves, spec, scalars, buckets):
         g = self._graphs.get(key)
         if g is None:
-            g = self._capture(key, fn, leaves, spec, scalars, caps)
+            g = self._capture(key, fn, leaves, spec, scalars, buckets)
         else:
             self._graphs.move_to_end(key)
         with torch.cuda.device(self.device):
@@ -251,20 +272,21 @@ class FrameGraphs:
         if not self._graphs:
             self._pool, self._pool_bytes = None, 0
 
-    def _make_room(self, caps) -> None:
-        """Before a capture at `caps`: drops the graphs of other caps (the
-        ones these supersede), then the least recently used past
-        `BOUND - 1`."""
-        self._drop([k for k, g in self._graphs.items() if g.caps != caps], evicted=False)
+    def _make_room(self, buckets) -> None:
+        """Before a capture at `buckets`: drops the graphs of the same
+        bucket set at other values (the ones these supersede), then the
+        least recently used past `BOUND - 1`."""
+        self._drop([k for k, g in self._graphs.items()
+                    if g.buckets[0] == buckets[0] and g.buckets != buckets], evicted=False)
         self._drop(list(self._graphs)[:max(0, len(self._graphs) - BOUND + 1)])
 
-    def _capture(self, key, fn, leaves, spec, scalars, caps) -> _Graph:
-        self._make_room(caps)
+    def _capture(self, key, fn, leaves, spec, scalars, buckets) -> _Graph:
+        self._make_room(buckets)
         alone = self._pool is None
         if alone:
             self._pool = torch.cuda.graph_pool_handle()
         try:
-            g = self._record(fn, leaves, spec, scalars, caps, alone)
+            g = self._record(fn, leaves, spec, scalars, buckets, alone)
         except BaseException:
             if not self._graphs:  # a failed first capture leaves no pool
                 self._pool = None
@@ -274,10 +296,10 @@ class FrameGraphs:
         self.captures += 1
         return g
 
-    def _record(self, fn, leaves, spec, scalars, caps, warm_up: bool) -> _Graph:
+    def _record(self, fn, leaves, spec, scalars, buckets, warm_up: bool) -> _Graph:
         dev = self.device
         with torch.cuda.device(dev):
-            g = _Graph(caps, leaves, scalars, dev)
+            g = _Graph(buckets, leaves, scalars, dev)
             g.load(leaves, scalars)
             t0 = t1 = time.perf_counter()
             if warm_up:
@@ -293,7 +315,9 @@ class FrameGraphs:
             reserved = torch.cuda.memory_reserved(dev)
             # A witnessed graph keeps its recorded form for the DOT print.
             graph = torch.cuda.CUDAGraph(keep_graph=self.witness)
-            with _build.capturing() as grew, torch.cuda.graph(graph, pool=self._pool):
+            self._stream = self._stream or torch.cuda.Stream(dev)
+            with _build.capturing() as grew, torch.cuda.graph(graph, pool=self._pool,
+                                                              stream=self._stream):
                 out = g.call(fn, spec)
             if self.witness:
                 graph.instantiate()

@@ -7,12 +7,15 @@ form: one Python call drives every shard, each on its own device.
 
 A `Mesh` is an explicit tuple of devices, one per shard.  An entry may
 repeat, so one card (or the CPU) can hold several shards, which then run
-one after another on its stream.  A shard's work runs inside `on(i)`,
-which makes its card the current one, so that its kernels launch on that
-card's stream.  The collectives are copies between the shards' devices
-(a copy to the device a tensor is already on is none), which PyTorch
-orders after the work on both cards' current streams.  Nothing here
-reads a device value on the host.
+one after another on its stream.  A sharded frame runs once a card
+(`cards`): `run` moves a piece's inputs to its card and makes that card
+the current one, so that its kernels launch on that card's stream.  The
+collectives are copies between the shards' devices (a copy to the device
+a tensor is already on is none), which PyTorch orders after the work on
+both cards' current streams.  Nothing here reads a device value on the
+host.  Two meshes of the same devices are equal and hash alike, as JAX's
+meshes do, so a frame graph keyed by its mesh serves every mesh built on
+those devices.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Sequence
 import torch
 
 
-def _device(d) -> torch.device:
+def as_device(d) -> torch.device:
     """`d` as a device with its index: "cuda" is the current card."""
     d = torch.device(d)
     if d.type == "cuda" and d.index is None:
@@ -35,29 +38,36 @@ class Mesh:
     """The shards' devices, shard i on `devices[i]`."""
 
     def __init__(self, devices: Sequence):
-        self.devices = tuple(_device(d) for d in devices)
+        self.devices = tuple(as_device(d) for d in devices)
         if not self.devices or len({d.type for d in self.devices}) > 1:
             raise ValueError(f"a mesh needs devices of one type, got {self.devices}")
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Mesh) and self.devices == other.devices
+
+    def __hash__(self) -> int:
+        return hash(self.devices)
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
-    def on(self, i: int):
-        """The context shard i's work runs in: its card the current device
-        (a kernel launches on the current card's stream); on the CPU none."""
-        d = self.devices[i]
-        return torch.cuda.device(d) if d.type == "cuda" else contextlib.nullcontext()
+    def cards(self) -> tuple:
+        """(device, the indices of its shards) for each distinct device, in
+        the order of its first shard."""
+        shards = {}
+        for i, d in enumerate(self.devices):
+            shards.setdefault(d, []).append(i)
+        return tuple((d, tuple(s)) for d, s in shards.items())
 
-    def replicate(self, tree):
-        """`tree` (a tensor, or a tuple or dict of them) on every shard's
-        device: a tuple of n trees, each device's copy made once and
-        shared by its shards (a tensor already there is not copied)."""
-        copies = {}
-        for d in self.devices:
-            if d not in copies:
-                copies[d] = _to(tree, d)
-        return tuple(copies[d] for d in self.devices)
+    @staticmethod
+    def run(fn, device: torch.device, args: tuple, kwargs: dict):
+        """`fn(*args, **kwargs)` on `device`, eagerly: the tensors of `args`
+        (tensors, or tuples or dicts of them) moved there, a tensor already
+        there not copied, and the card current while `fn` runs."""
+        on = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+        with on:
+            return fn(*_to(args, device), **kwargs)
 
     def all_to_all(self, blocks):
         """`blocks[s]`: shard s's [n, ...] tensor on its device, row d

@@ -29,9 +29,11 @@ channels, expand, and whether a crop is given) are Python values.
 `render_frame_sharded` and `render_frame_sharded_lines` are the two
 multi-device frames over a `mesh.Mesh` (`forma_tpu/ops/pipeline.py:
 377-566`), in the JAX package's single-controller form: one call drives
-every shard on its device.  Nothing here reads a device value on the
-host (`tests/test_torch_graphs.py` holds the single-device frames to it):
-that is what lets a frame be captured as a CUDA graph.
+every shard on its device, in pieces of one call a card (`row_shards`;
+`line_front`, then the exchange, then `line_back`).  Nothing here reads
+a device value on the host (`tests/test_torch_graphs.py` and
+`tests/test_torch_sharded.py` hold the frames to it): that is what lets a
+frame, or one card's piece of it, be captured as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -347,11 +349,41 @@ def _shard_taps(taps, i: int):
     return None if taps is None else taps.setdefault(i, {})
 
 
+def _per_card(mesh, run, fn, args, kwargs) -> list:
+    """Calls `run(fn, device, args(shards), kwargs + shards)` once for each
+    card of `mesh`, `shards` the indices of the card's shards; `fn`
+    returns one result a shard.  Returns the results in shard order."""
+    out = [None] * mesh.size
+    for dev, shards in mesh.cards():
+        for i, r in zip(shards, run(fn, dev, args(shards), dict(kwargs, shards=shards))):
+            out[i] = r
+    return out
+
+
+def row_shards(
+    px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
+    width: int, height: int, rows: int, tiles_x: int,
+    caps: Caps, features: Features, channels,
+    shards: tuple, expand: str = "fused", plain: bool = False, taps=None,
+):
+    """Row shards `shards` of `render_frame_sharded`, all on the inputs'
+    device: shard i runs the whole `_core` on tile rows [i * rows, (i + 1)
+    * rows).  Returns one (u8 frame, int64 [6] diag) a shard."""
+    return tuple(
+        _core(
+            px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
+            width, height, rows, tiles_x, caps, features, channels,
+            row_lo=i * rows, expand=expand, plain=plain, taps=_shard_taps(taps, i),
+        )
+        for i in shards
+    )
+
+
 def render_frame_sharded(
     px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
     width: int, height: int, rows: int, tiles_x: int,
     caps: Caps, features: Features, channels, mesh,
-    expand: str = "fused", plain: bool = False, taps=None,
+    expand: str = "fused", plain: bool = False, taps=None, run=None,
 ):
     """Framebuffer-sharded render over `mesh` (`forma_tpu/ops/pipeline.py:
     377-417`): every input replicates to every shard's device, and shard i
@@ -361,19 +393,21 @@ def render_frame_sharded(
     up).  Returns (the shards' u8 frames [rows*16, tiles_x*16, C], each on
     its device; the int64 [6] diagnostics, their elementwise maximum over
     the shards, on shard 0's device).  `torch.cat` of the frames (on one
-    device) is the JAX package's frame: its first `height` rows are the image.  `taps`
-    (a dict) receives each shard's kernel inputs under the shard's index."""
-    inputs = mesh.replicate((px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear))
-    frames, diags = [], []
-    for i, args in enumerate(inputs):
-        with mesh.on(i):
-            frame, diag = _core(
-                *args, width, height, rows, tiles_x, caps, features, channels,
-                row_lo=i * rows, expand=expand, plain=plain, taps=_shard_taps(taps, i),
-            )
-        frames.append(frame)
-        diags.append(diag)
-    return tuple(frames), mesh.pmax(diags)
+    device) is the JAX package's frame: its first `height` rows are the
+    image.  `taps` (a dict) receives each shard's kernel inputs under the
+    shard's index.
+
+    Each card's shards run in one call of `row_shards` through
+    `run(fn, device, args, kwargs)`: by default `mesh.run`, eagerly on the
+    card; the renderer passes one that replays the card's CUDA graph of
+    that call, where the shards lie on several cards."""
+    out = _per_card(
+        mesh, run or mesh.run, row_shards,
+        lambda _: (px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear),
+        dict(width=width, height=height, rows=rows, tiles_x=tiles_x, caps=caps,
+             features=features, channels=channels, expand=expand, plain=plain, taps=taps),
+    )
+    return tuple(f for f, _ in out), mesh.pmax([d for _, d in out])
 
 
 def _exchange_blocks(packed, payload, n: int, rows: int, shift: int, xcap: int):
@@ -400,94 +434,128 @@ def _exchange_blocks(packed, payload, n: int, rows: int, shift: int, xcap: int):
     return blk_k, blk_p, (ends - starts).max()
 
 
+def line_front(
+    p0x, p0y, p1x, p1y, line_slot, g_slot, g_valid, g_t, g_has_t,
+    width: int, height: int, rows: int, tiles_x: int, caps: Caps,
+    n: int, xcap: int, slot_bits: int,
+    shards: tuple, expand: str = "fused", plain: bool = False, taps=None,
+):
+    """The front half of line shards `shards` of
+    `render_frame_sharded_lines`, all on the inputs' device: shard i takes
+    the i-th n-th of the pair arrays, runs line setup on them and the
+    packed emit at the frame's global tile rows (`rows * n` rows from row
+    0), sorts locally and cuts the sorted stream into one block of `xcap`
+    slots per destination (`_exchange_blocks`).  Returns one (keys,
+    payloads int32 [n, xcap], its vline total, its segments, the largest
+    block's segment count) a shard."""
+    tx_bits = max((tiles_x + 1).bit_length(), 1)
+    own = [t.reshape(n, -1) for t in (p0x, p0y, p1x, p1y, line_slot)]
+    out = []
+    for i in shards:
+        params, _, lengths, vline_ends = _ls.line_setup_pairs(
+            *(t[i] for t in own), g_slot, g_valid, g_t, g_has_t,
+            width, height, k_seg=K_SEG,
+        )
+        v_total = vline_ends[-1]
+        packed, payload = _raster._expand_emit_packed(
+            params, lengths, vline_ends, torch.clamp(v_total, max=caps.vline),
+            caps.vline, K_SEG, rows * n, tiles_x, 0, slot_bits, tx_bits,
+            expand=expand, plain=plain, taps=_shard_taps(taps, i),
+        )
+        # Ascending keys are ascending global rows: grouped by destination.
+        packed, order = torch.sort(packed, stable=False)
+        k, p, max_pair = _exchange_blocks(
+            packed, payload[order], n, rows, slot_bits + tx_bits, xcap)
+        out.append((k, p, v_total, lengths.sum(dtype=torch.int64), max_pair))
+    return tuple(out)
+
+
+def line_back(
+    recv_k, recv_p, v_totals, max_pairs,  # one each a shard of `shards`
+    total_segs, st, clear, rows: int, tiles_x: int,
+    caps: Caps, features: Features, channels, slot_bits: int,
+    shards: tuple, plain: bool = False, taps=None,
+):
+    """The back half of line shards `shards` of
+    `render_frame_sharded_lines`, all on the inputs' device: shard i
+    re-biases the rows of the segments it received (`recv_k`, `recv_p`,
+    what `mesh.all_to_all` gave it) to its own, sorts them and runs
+    `_back` on its tile rows [i * rows, (i + 1) * rows), with its front
+    half's vline total and the frame's segments (`total_segs`, the sum
+    over the shards).  Returns one (u8 frame, int64 [8] diag) a shard."""
+    tx_bits = max((tiles_x + 1).bit_length(), 1)
+    shift = slot_bits + tx_bits
+    out = []
+    for i, k, p, v_total, max_pair in zip(shards, recv_k, recv_p, v_totals, max_pairs):
+        row_lo = i * rows
+        k = torch.where(k == PACKED_SENTINEL, k, k - (row_lo << shift))
+        recv_valid = (k != PACKED_SENTINEL).sum(dtype=torch.int64)
+        key_hi, key_lo, payload = _raster.sort_segments(k, p, slot_bits, tx_bits)
+        frame, diag = _back(
+            key_hi, key_lo, payload, v_total, total_segs,
+            st, clear, rows, tiles_x, caps, features, channels,
+            row_lo=row_lo, presorted=True, plain=plain, taps=_shard_taps(taps, i),
+        )
+        out.append((frame, torch.cat([diag, max_pair[None], recv_valid[None]])))
+    return tuple(out)
+
+
 def render_frame_sharded_lines(
     p0x, p0y, p1x, p1y, line_slot,  # [L] line-endpoint pairs, shard i's the i-th L/n
     g_slot, g_valid, g_t, g_has_t, st, clear,
     width: int, height: int, rows: int, tiles_x: int,
     caps: Caps, features: Features, channels, mesh,
     xcap: int,  # per-(source, destination) exchange block capacity, a multiple of 128
-    expand: str = "fused", plain: bool = False, taps=None,
+    expand: str = "fused", plain: bool = False, taps=None, run=None,
 ):
     """Line-sharded render over `mesh` (`forma_tpu/ops/pipeline.py:
     420-566`): the lines shard as well as the frame, so line setup, the
     expansion and emit, and the segment sort each do ~1/n of the work.
 
     Shard i takes the i-th n-th of the pair arrays (the renderer permutes
-    them round-robin), runs line setup on its pairs and the packed emit
-    at global tile rows (`rows * n` rows from row 0), sorts locally, cuts
-    the sorted stream into one block of `xcap` slots per destination
-    shard (`_exchange_blocks`), and the blocks change places
-    (`mesh.all_to_all`).  Each shard then re-biases the rows it received
-    to its own, sorts them and runs `_back` on its tile rows [i * rows,
-    (i + 1) * rows).  Needs the packed key: raises `ValueError` where
-    [row | slot | tx] passes 31 bits at `rows * n` rows (the row-sharded
-    frame takes such scenes).  `caps` are per shard.  Returns what
-    `render_frame_sharded` returns, with the diagnostics' DIAG_SEGS the
-    sum over the shards and two more entries, DIAG_XPAIR (a block that
-    passes `xcap` drops segments, and the frame is invalid until the
-    caller grows `xcap`) and DIAG_XRECV."""
+    them round-robin) and runs the front half (`line_front`); the blocks
+    change places (`mesh.all_to_all`) and the shards' segment counts sum
+    (`mesh.psum`); each shard then runs the back half (`line_back`) on its
+    tile rows [i * rows, (i + 1) * rows).  Needs the packed key: raises
+    `ValueError` where [row | slot | tx] passes 31 bits at `rows * n` rows
+    (the row-sharded frame takes such scenes).  `caps` are per shard.
+    Returns what `render_frame_sharded` returns, with the diagnostics'
+    DIAG_SEGS the sum over the shards and two more entries, DIAG_XPAIR (a
+    block that passes `xcap` drops segments, and the frame is invalid
+    until the caller grows `xcap`) and DIAG_XRECV.  Each half of a card's
+    shards is one call through `run`, as in `render_frame_sharded`; the
+    exchange and the sums run between them."""
     n = mesh.size
-    rows_total = rows * n
-    slot_bits = slot_bits_for(st["orders"].shape[0], rows_total, tiles_x)
+    slot_bits = slot_bits_for(st["orders"].shape[0], rows * n, tiles_x)
     if slot_bits == 0:
         raise ValueError(
             "the line-sharded frame needs the packed key; use render_frame_sharded"
         )
-    tx_bits = max((tiles_x + 1).bit_length(), 1)
-    shift = slot_bits + tx_bits
     # A shard sends no destination more than its own segment slots, which
     # also keeps every block's start in range.
     xcap = min(xcap, caps.vline * K_SEG)
     if xcap % 128 or line_slot.shape[0] % n:
         raise ValueError(f"xcap {xcap} must be a multiple of 128 and the lines "
                          f"{line_slot.shape[0]} of the mesh size {n}")
-
-    # Front half: each shard's own lines at global tile rows.
-    own = [t.reshape(n, -1) for t in (p0x, p0y, p1x, p1y, line_slot)]
-    shared = mesh.replicate((g_slot, g_valid, g_t, g_has_t, st, clear))
-    fronts, blk_k, blk_p = [], [], []
-    for i, dev in enumerate(mesh.devices):
-        with mesh.on(i):
-            params, _, lengths, vline_ends = _ls.line_setup_pairs(
-                *(t[i].to(dev, non_blocking=True) for t in own), *shared[i][:4],
-                width, height, k_seg=K_SEG,
-            )
-            v_total = vline_ends[-1]
-            packed, payload = _raster._expand_emit_packed(
-                params, lengths, vline_ends, torch.clamp(v_total, max=caps.vline),
-                caps.vline, K_SEG, rows_total, tiles_x, 0, slot_bits, tx_bits,
-                expand=expand, plain=plain, taps=_shard_taps(taps, i),
-            )
-            # Ascending keys are ascending global rows: grouped by destination.
-            packed, order = torch.sort(packed, stable=False)
-            k, p, max_pair = _exchange_blocks(packed, payload[order], n, rows, shift, xcap)
-        blk_k.append(k)
-        blk_p.append(p)
-        fronts.append((v_total, lengths.sum(dtype=torch.int64), max_pair))
-
-    recv_k = mesh.all_to_all(blk_k)
-    recv_p = mesh.all_to_all(blk_p)
-    total_segs = mesh.psum([f[1] for f in fronts])
-
-    # Back half: each shard's received segments at its own rows.
-    frames, diags = [], []
-    for i, dev in enumerate(mesh.devices):
-        row_lo = i * rows
-        st_i, clear_i = shared[i][4:]
-        v_total, _, max_pair = fronts[i]
-        with mesh.on(i):
-            k = recv_k[i]
-            k = torch.where(k == PACKED_SENTINEL, k, k - (row_lo << shift))
-            recv_valid = (k != PACKED_SENTINEL).sum(dtype=torch.int64)
-            key_hi, key_lo, payload = _raster.sort_segments(k, recv_p[i], slot_bits, tx_bits)
-            frame, diag = _back(
-                key_hi, key_lo, payload, v_total, total_segs.to(dev, non_blocking=True),
-                st_i, clear_i, rows, tiles_x, caps, features, channels,
-                row_lo=row_lo, presorted=True, plain=plain, taps=_shard_taps(taps, i),
-            )
-        frames.append(frame)
-        diags.append(torch.cat([diag, max_pair[None], recv_valid[None]]))
-    return tuple(frames), mesh.pmax(diags)
+    run = run or mesh.run
+    fronts = _per_card(
+        mesh, run, line_front,
+        lambda _: (p0x, p0y, p1x, p1y, line_slot, g_slot, g_valid, g_t, g_has_t),
+        dict(width=width, height=height, rows=rows, tiles_x=tiles_x, caps=caps, n=n,
+             xcap=xcap, slot_bits=slot_bits, expand=expand, plain=plain, taps=taps),
+    )
+    recv_k = mesh.all_to_all([f[0] for f in fronts])
+    recv_p = mesh.all_to_all([f[1] for f in fronts])
+    total_segs = mesh.psum([f[3] for f in fronts])
+    backs = _per_card(
+        mesh, run, line_back,
+        lambda s: (tuple(recv_k[i] for i in s), tuple(recv_p[i] for i in s),
+                   tuple(fronts[i][2] for i in s), tuple(fronts[i][4] for i in s),
+                   total_segs, st, clear),
+        dict(rows=rows, tiles_x=tiles_x, caps=caps, features=features, channels=channels,
+             slot_bits=slot_bits, plain=plain, taps=taps),
+    )
+    return tuple(f for f, _ in backs), mesh.pmax([d for _, d in backs])
 
 
 def style_tables_device(st, device) -> dict:

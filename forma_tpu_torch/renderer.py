@@ -28,7 +28,10 @@ Compiled frames: on a CUDA device, `render_device` (and so `render`,
 programs), captured the first time a key is seen; a capture that fails
 raises.  `plain=True` and `taps=` run the frame eagerly, op by op: they
 are the instruments the checks use, not a fallback.  A CPU renderer
-captures nothing.  The multi-device frames run eagerly.
+captures nothing.  So do the multi-device frames: one graph of the whole
+frame where every shard sits on the renderer's card, else one graph a
+card of its piece (two for the line-sharded frame, the exchange between
+them), each card's graphs in their own `FrameGraphs` (`graphs_on`).
 
 Geometry tensors are cached on the segment buffer's version and only
 re-upload when paths change; per-frame host work is O(#geometries +
@@ -47,7 +50,7 @@ from .buffer import RGBA, Buffer, BufferLayerCache, LinearLayout
 from .buffer import normalize_channels as _normalize_channels
 from .composition import Composition
 from .graphs import FrameGraphs
-from .mesh import Mesh
+from .mesh import Mesh, as_device
 from .ops import pipeline as _pipe
 from .ops import styles as _styles
 from .ops._u32 import from_numpy
@@ -148,7 +151,9 @@ class Renderer:
         self.readback_bytes = 0  # bytes the damage-cached path read back
         self._pending = None  # in-flight pipelined frame (ticket, buffer, ...)
         # The frame graphs, one per static key; only a CUDA renderer captures.
+        # A sharded frame's pieces on other cards keep theirs in `_card_graphs`.
         self.graphs = FrameGraphs(self.device)
+        self._card_graphs = {}
 
     def _tensor(self, a) -> torch.Tensor:
         return from_numpy(a, self.device)  # a copy: host arrays may change
@@ -691,16 +696,51 @@ class Renderer:
             cache._vkey = None
         return t
 
+    def _compiled(self, kwargs) -> bool:
+        """Whether a frame with keyword arguments `kwargs` replays a CUDA
+        graph: on a CUDA device, unless `kwargs` asks for the plain
+        kernels or taps (then it runs eagerly, as on the CPU)."""
+        return (self.device.type == "cuda" and not kwargs.get("plain")
+                and kwargs.get("taps") is None)
+
     def _frame(self, entry, args, kwargs, scalars):
-        """One frame of pipeline entry point `entry`: on a CUDA device a
+        """One frame of pipeline entry point `entry`: where `_compiled`, a
         replay of its graph for this key (`graphs.FrameGraphs.run`; the
         row span, crop bounds and cache state in `scalars` become int32
-        device scalars, outside the key), and eagerly on the CPU or where `kwargs` asks
-        for the plain kernels or taps."""
-        if (self.device.type != "cuda" or kwargs.get("plain")
-                or kwargs.get("taps") is not None):
+        device scalars, outside the key), else eagerly."""
+        if not self._compiled(kwargs):
             return entry(*args, **kwargs, **scalars)
-        return self.graphs.run(entry, args, kwargs, scalars, self._caps)
+        return self.graphs.run(entry, args, kwargs, scalars, ("_caps", self._caps))
+
+    def graphs_on(self, device) -> FrameGraphs:
+        """The frame graphs of `device`: `graphs` on this renderer's own,
+        a set of their own on each other card (a CUDA graph belongs to one
+        card)."""
+        device = as_device(device)
+        if device == as_device(self.device):
+            return self.graphs
+        return self._card_graphs.setdefault(device, FrameGraphs(device))
+
+    def _one_card(self, mesh: Mesh) -> bool:
+        """Whether every shard of `mesh` sits on this renderer's device."""
+        return set(mesh.devices) == {as_device(self.device)}
+
+    def _sharded_frame(self, entry, mesh, args, kwargs, buckets):
+        """One multi-device frame of `entry` over `mesh` (one of `args`),
+        reading the bucket set `buckets`: where `_compiled` and every shard
+        sits on this card, one replay of the whole frame's graph; where
+        `_compiled` and the shards sit on other cards too, each card's
+        piece replays that card's graph (`graphs_on`) and the collectives
+        between the pieces run eagerly; else eagerly."""
+        if not self._compiled(kwargs):
+            return entry(*args, **kwargs)
+        if self._one_card(mesh):
+            return self.graphs.run(entry, args, kwargs, {}, buckets)
+
+        def run(fn, device, a, k):
+            return self.graphs_on(device).run(fn, a, k, {}, buckets)
+
+        return entry(*args, **kwargs, run=run)
 
     def _issue_cached(self, t):
         """Queues the frame of a ticket with the current caps and its kept
@@ -924,16 +964,19 @@ class Renderer:
         JAX package's sharded frame, whose first `height` rows are the image (the tile rows pad
         up to a multiple of the shard count).  The diagnostics are the
         maximum over the shards, so the growth loop of `render_device`
-        applies, with `check_caps` as there."""
+        applies, with `check_caps` as there.  On a CUDA renderer a frame
+        replays CUDA graphs (`_sharded_frame`) unless `taps` asks for the
+        eager frame; a renderer reuses a graph for every mesh built on the
+        same devices."""
         mesh = self._shard_mesh(n_shards, devices)
         inputs, st_host, chans = self._whole_frame_inputs(
             composition, width, height, clear_color, channels
         )
         rows, tiles_x = _shard_rows(height, mesh.size), -(-width // consts.TILE_WIDTH)
-        return self._until_fits(lambda: _pipe.render_frame_sharded(
-            *inputs, width, height, rows, tiles_x,
-            self._caps, st_host.features, chans, mesh,
-            expand=self.expand, taps=taps,
+        return self._until_fits(lambda: self._sharded_frame(
+            _pipe.render_frame_sharded, mesh,
+            (*inputs, width, height, rows, tiles_x, self._caps, st_host.features, chans, mesh),
+            dict(expand=self.expand, taps=taps), ("_caps", self._caps),
         ), check_caps)
 
     def render_device_sharded_lines(
@@ -957,8 +1000,9 @@ class Renderer:
         diagnostics with DIAG_XPAIR and DIAG_XRECV.  The per-shard buckets
         start at 1/n of the single-device estimate and the exchange
         capacity at twice a shard's segment slots over n; both grow in
-        the loop.  A scene whose [row | slot | tx] key passes 31 bits
-        takes `render_device_sharded` instead."""
+        the loop; a graph captured at smaller ones is dropped.  A scene
+        whose [row | slot | tx] key passes 31 bits takes
+        `render_device_sharded` instead."""
         mesh = self._shard_mesh(n_shards, devices)
         n = mesh.size
         inputs, st_host, chans = self._whole_frame_inputs(
@@ -982,8 +1026,9 @@ class Renderer:
             est = self._caps_lines.vline * _pipe.K_SEG // n * 2
             self._xcap = max(128 * -(-est // 128), 1024)
             self._lines_n = n
-        return self._until_fits(lambda: _pipe.render_frame_sharded_lines(
-            *pairs, *inputs[3:], width, height, rows, tiles_x,
-            self._caps_lines, st_host.features, chans, mesh, self._xcap,
-            expand=self.expand, taps=taps,
+        return self._until_fits(lambda: self._sharded_frame(
+            _pipe.render_frame_sharded_lines, mesh,
+            (*pairs, *inputs[3:], width, height, rows, tiles_x, self._caps_lines,
+             st_host.features, chans, mesh, self._xcap),
+            dict(expand=self.expand, taps=taps), ("_caps_lines", self._caps_lines, self._xcap),
         ), check_caps, "_caps_lines", exchange=True)

@@ -10,6 +10,7 @@ import forma_tpu
 import forma_tpu_torch as pt
 from forma_tpu.renderer import Renderer as JaxRenderer
 from forma_tpu_torch import Renderer
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _scene(pkg):

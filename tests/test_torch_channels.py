@@ -10,6 +10,7 @@ import pytest
 import forma_tpu
 import forma_tpu_torch
 from forma_tpu.renderer import Renderer as JaxRenderer
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 ORDERS = ("RGBA", "BGRA", "BGR1", "RGB0")
 CLEAR = (0.25, 0.5, 0.75, 1.0)

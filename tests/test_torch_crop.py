@@ -26,6 +26,7 @@ from forma_tpu.renderer import Renderer as JaxRenderer
 from forma_tpu_torch import Renderer
 from forma_tpu_torch.ops import paint, pipeline
 from forma_tpu_torch.ops.fold_kernel import fold_tiles
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _max_diff(a, b):

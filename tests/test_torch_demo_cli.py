@@ -12,6 +12,7 @@ import torch
 
 from forma_tpu.demos import main as jax_main
 from forma_tpu_torch.demos import main as demo_main
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 SIZE = ["--width", "64", "--height", "64"]
 TRIANGLE = ('<svg xmlns="http://www.w3.org/2000/svg" width="64" height="64">'

@@ -37,6 +37,7 @@ from forma_tpu_torch.backend_numpy import render_window
 from forma_tpu_torch.convert import composition_from_jax
 from forma_tpu_torch.ops import pipeline
 from forma_tpu_torch.probes import envelope as ev
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 W, H, PATHS, WIN = 512, 256, 200, 64
 

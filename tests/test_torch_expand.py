@@ -14,6 +14,7 @@ from forma_tpu.ops.expand_pallas import VB, expand_params_pallas
 from forma_tpu_torch.ops import _build
 from forma_tpu_torch.ops.expand_kernel import expand_params, expand_params_torch
 from forma_tpu_torch.ops.line_setup import N_PARAMS
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _case(rng, L, with_dead_runs):

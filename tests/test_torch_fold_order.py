@@ -11,6 +11,7 @@ import torch
 from forma_tpu_torch import Color, Composition, Renderer
 from forma_tpu_torch.demos import scenes
 from forma_tpu_torch.ops import fold_kernel
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _check_order(cnt: torch.Tensor):

@@ -33,6 +33,7 @@ from forma_tpu_torch.ops.pipeline import slot_bits_for
 from forma_tpu_torch.ops.rasterize_kernel import (
     PACKED_SENTINEL, check_key_budget, rasterize_blocks,
 )
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 K_SEG = 8
 SLOT_BITS, TX_BITS = 6, 7

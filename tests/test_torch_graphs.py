@@ -15,12 +15,14 @@ graph of a frame needs, held without a card.
   cases, through the renderer with its scalars made tensors).
 - The key: equal across crop values, row spans and `cache_ok`; different
   across caps, features, channels, expand, input shapes and a crop given
-  or not; the bound, and the eviction of superseded caps.
+  or not; the bound, and the eviction of superseded buckets, set by set.
 - The shared pool: one pool for a renderer's graphs, a warm-up only for a
   capture into an empty set; a frame out of memory beside other graphs
   drops them all and runs alone, alone it raises, and a failed first
   capture leaves no pool behind.
 - The witness: kernel nodes counted in a graph's DOT print.
+- The stand-in graph and the no-read context are `torch_fixtures.py`'s
+  fixtures (`test_torch_sharded.py` uses them too).
 - A graph's static inputs: a changed input is copied in, the same tensor
   unmodified is not, an in-place change is; scalars fill.
 - Launch counts through a capture (taken back) and replays (added).
@@ -37,14 +39,11 @@ from forma_tpu_torch import Color, Composition, Renderer
 from forma_tpu_torch.buffer import RGBA, Buffer, LinearLayout
 from forma_tpu_torch.demos import scenes
 from forma_tpu_torch.graphs import BOUND, FrameGraphs, _Graph, kernel_nodes
-from forma_tpu_torch.ops import _build, fold_kernel, pipeline
+from forma_tpu_torch.ops import _build, pipeline
 from test_torch_crop import SCENES, _max_diff, _renderer
+from torch_fixtures import cpu_graphs, no_reads, one_torch_thread  # noqa: F401 (fixtures)
 
 CLEAR = Color(1.0, 1.0, 1.0, 1.0)
-READS = ("item", "tolist", "numpy", "cpu", "__bool__", "__int__", "__float__",
-         "__index__")
-
-
 def _circles(comp):
     scenes.circles(comp, 64, 64, 64)
 
@@ -70,45 +69,6 @@ def _inputs(build, w=64, h=64):
     r.render(comp, w, h, CLEAR)
     inputs, st_host, chans = r._whole_frame_inputs(comp, w, h, CLEAR, RGBA)
     return r, inputs, st_host, chans
-
-
-class ReadBack(AssertionError):
-    pass
-
-
-@pytest.fixture
-def no_reads(monkeypatch):
-    """While the returned context is open, every way of reading a tensor's
-    value on the host raises `ReadBack`, except one read in each call of
-    the plain fold (`paint_fold_torch`: its depth)."""
-    import contextlib
-
-    allowed = [0]
-    real_fold = fold_kernel.paint_fold_torch
-
-    def plain_fold(*a, **k):
-        allowed[0] = 1
-        try:
-            return real_fold(*a, **k)
-        finally:
-            allowed[0] = 0
-
-    @contextlib.contextmanager
-    def armed():
-        with monkeypatch.context() as m:
-            for name in READS:
-                real = getattr(torch.Tensor, name)
-
-                def read(self, *a, _name=name, _real=real, **k):
-                    if allowed[0]:
-                        allowed[0] -= 1
-                        return _real(self, *a, **k)
-                    raise ReadBack(f"Tensor.{_name} inside the frame")
-                m.setattr(torch.Tensor, name, read)
-            m.setattr(fold_kernel, "paint_fold_torch", plain_fold)
-            yield
-
-    return armed
 
 
 def _run_both(r, inputs, st_host, chans, w, h, **crop):
@@ -281,13 +241,17 @@ def test_key_changes_with_entry_point_and_dtype():
 
 
 class _Fake:
-    def __init__(self, caps):
-        self.caps = caps
+    def __init__(self, buckets):
+        self.buckets = buckets
 
 
 def test_bound_and_caps_eviction():
+    """The bound drops the least recently used graphs; a capture at grown
+    buckets drops every graph of the same bucket set at the old values,
+    and only those: the line-sharded frame's buckets (`_caps_lines` and
+    `xcap`) and the other frames' (`_caps`) supersede only their own."""
     fg = FrameGraphs("cuda")
-    small, big = pipeline.Caps(), pipeline.Caps(run=1024)
+    small, big = ("_caps", pipeline.Caps()), ("_caps", pipeline.Caps(run=1024))
     for i in range(BOUND + 3):
         fg._make_room(small)
         fg._graphs[i] = _Fake(small)
@@ -295,11 +259,18 @@ def test_bound_and_caps_eviction():
     assert list(fg._graphs) == list(range(3, BOUND + 3))  # least recently used out
     fg._make_room(big)  # a capture at grown caps drops every graph of the old ones
     assert len(fg) == 0
+    lines = ("_caps_lines", pipeline.Caps(), 1024)
+    fg._graphs.update(a=_Fake(big), b=_Fake(lines))
+    fg._make_room(("_caps_lines", pipeline.Caps(), 2048))  # a larger xcap
+    assert list(fg._graphs) == ["a"]
+    fg._graphs["b"] = _Fake(lines)
+    fg._make_room(("_caps", pipeline.Caps(run=2048)))
+    assert list(fg._graphs) == ["b"] and fg.evictions == 3
 
 
 def test_static_inputs_copy_only_what_changed():
     a, b = torch.arange(4.0), torch.zeros(3, dtype=torch.int32)
-    g = _Graph(pipeline.Caps(), [a, 5, b], {"row_lo": 0, "crop_x": (0, 1)}, "cpu")
+    g = _Graph(("_caps", pipeline.Caps()), [a, 5, b], {"row_lo": 0, "crop_x": (0, 1)}, "cpu")
     assert g.leaves[0] is not a and torch.equal(g.leaves[0], a)
     g.load([a, 5, b], {"row_lo": 3, "crop_x": (2, 4)})
     assert int(g.scalars["row_lo"]) == 3
@@ -348,82 +319,6 @@ def test_cpu_renderer_builds_no_graph(monkeypatch):
     r.render_into(comp, b, CLEAR)
     np.testing.assert_array_equal(buf.reshape(64, 64, 4), img)
     assert len(r.graphs) == 0 and r.graphs.captures == 0
-
-
-class _Replayer:
-    """A stand-in for a captured graph on the CPU: a replay runs the frame
-    again on the graph's static inputs and writes each result into the
-    static output tensors in place, as a replay overwrites them."""
-
-    def __init__(self, g, fn, spec):
-        self.g, self.fn, self.spec = g, fn, spec
-
-    def replay(self):
-        fresh = self.g.call(self.fn, self.spec)
-        for dst, src in zip(torch.utils._pytree.tree_leaves(self.g.out),
-                            torch.utils._pytree.tree_leaves(fresh)):
-            dst.copy_(src)
-
-
-@pytest.fixture
-def cpu_graphs(monkeypatch):
-    """`FrameGraphs` driven on the CPU: the CUDA calls of a capture become
-    no-ops and each graph a `_Replayer`.  Returns a function that routes a
-    CPU renderer's frames through its graphs; its `calls` counts the pools
-    made (`graph_pool_handle`), the warm-ups (`stream`) and the
-    recordings (`graph`, with the pool of each)."""
-    import contextlib
-
-    calls = {"pools": 0, "warmups": 0, "recorded_in": []}
-
-    class _Null:
-        def __init__(self, *a, **k):
-            pass
-
-        def wait_stream(self, *a):
-            pass
-
-    @contextlib.contextmanager
-    def null_ctx(*a, **k):
-        yield
-
-    @contextlib.contextmanager
-    def warmup(*a, **k):
-        calls["warmups"] += 1
-        yield
-
-    @contextlib.contextmanager
-    def graph(g, pool=None, **k):
-        calls["recorded_in"].append(pool)
-        yield
-
-    def pool_handle():
-        calls["pools"] += 1
-        return ("pool", calls["pools"])
-
-    for name, value in (("device", null_ctx), ("stream", warmup), ("graph", graph),
-                        ("graph_pool_handle", pool_handle),
-                        ("Stream", _Null), ("CUDAGraph", _Null),
-                        ("current_stream", lambda *a: _Null()),
-                        ("synchronize", lambda *a: None), ("empty_cache", lambda: None),
-                        ("memory_reserved", lambda *a: 0)):
-        monkeypatch.setattr(torch.cuda, name, value)
-    real = FrameGraphs._record
-
-    def record(self, fn, leaves, spec, *a):
-        g = real(self, fn, leaves, spec, *a)
-        g.graph = _Replayer(g, fn, spec)
-        return g
-
-    monkeypatch.setattr(FrameGraphs, "_record", record)
-
-    def route(r):
-        monkeypatch.setattr(r, "_frame", lambda entry, args, kwargs, scalars:
-                            r.graphs.run(entry, args, kwargs, scalars, r._caps))
-        return r
-
-    route.calls = calls
-    return route
 
 
 def test_graph_frames_equal_eager_frames(cpu_graphs):
@@ -491,6 +386,21 @@ def test_graphs_share_one_pool(cpu_graphs):
     assert calls["recorded_in"][-1] != calls["recorded_in"][-2]
 
 
+def test_captures_record_on_their_own_cards_stream(cpu_graphs):
+    """Every capture of a renderer's graphs records on one stream made on
+    the graphs' own device (PyTorch's default capture stream is one for
+    the process, on whichever card captured first: a capture on another
+    card would launch its kernels outside the recording)."""
+    build, w, h = SCENES["gradient"]
+    comp = build(forma_tpu_torch)
+    r = cpu_graphs(Renderer("cpu"))
+    r.render(comp, w, h, CLEAR)
+    r.render_device(comp, w, h, CLEAR, row_span=(0, 3))
+    streams = cpu_graphs.calls["recorded_on"]
+    assert len(streams) >= 2 and all(s is streams[0] for s in streams)
+    assert streams[0].args == (r.graphs.device,)
+
+
 def test_out_of_memory_beside_other_graphs_runs_alone(cpu_graphs, monkeypatch):
     """A capture that runs out of memory beside another graph drops it and
     captures again alone (a new pool, a warm-up), and the frame equals
@@ -504,10 +414,10 @@ def test_out_of_memory_beside_other_graphs_runs_alone(cpu_graphs, monkeypatch):
     real = FrameGraphs._record
     fail = {"beside": True, "alone": False}
 
-    def record(self, fn, leaves, spec, scalars, caps, warm_up):
+    def record(self, fn, leaves, spec, scalars, buckets, warm_up):
         if fail["alone" if warm_up else "beside"]:
             raise torch.cuda.OutOfMemoryError("CUDA out of memory (stand-in)")
-        return real(self, fn, leaves, spec, scalars, caps, warm_up)
+        return real(self, fn, leaves, spec, scalars, buckets, warm_up)
 
     monkeypatch.setattr(FrameGraphs, "_record", record)
     pools, warmups = calls["pools"], calls["warmups"]

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from forma_tpu.ops.grid_pallas import B, grid_build_pallas
 from forma_tpu_torch.ops import _build
 from forma_tpu_torch.ops.grid_kernel import grid_build, grid_build_torch
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _make(N, R, NV, seed):

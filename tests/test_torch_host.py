@@ -24,6 +24,7 @@ from forma_tpu.ops.styles import StyleMap as JaxStyleMap
 from forma_tpu_torch.convert import composition_from_jax
 from forma_tpu_torch.demos import scenes as port_scenes
 from forma_tpu_torch.ops.styles import StyleMap
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = FsPath(__file__).resolve().parents[1]
 IMPORT_RE = re.compile(r"^\s*(from|import) forma_tpu(\.|\s|$)", re.M)

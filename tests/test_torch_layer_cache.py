@@ -18,6 +18,7 @@ from forma_tpu.renderer import Renderer as JaxRenderer
 from forma_tpu_torch import Renderer
 from forma_tpu_torch.ops import pipeline as pipe
 from forma_tpu_torch.renderer import _DMG_PREFIX
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 PKGS = (forma_tpu, forma_tpu_torch)
 POISON = 0xAB

@@ -32,6 +32,7 @@ from forma_tpu_torch.ops import _build
 from forma_tpu_torch.probes import fold_ablate as k8
 from forma_tpu_torch.probes import grid_scatter as k9
 from forma_tpu_torch.probes import microbench as mb
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = FsPath(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))

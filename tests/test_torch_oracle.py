@@ -25,6 +25,7 @@ from forma_tpu_torch.demos import scenes
 from forma_tpu_torch.demos.svg import Svg
 from test_torch_host import PORT_E2E
 from test_torch_render import _random_styled_scene
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 E2E_CLEAR = (1.0, 1.0, 1.0, 0.0)  # the goldens' clear colour
 

@@ -32,6 +32,7 @@ from forma_tpu_torch.ops.fold_kernel import (
     fold_tiles, paint_fold, paint_fold_torch, style_layout, tile_spans,
 )
 from forma_tpu_torch.ops.pipeline import DIAG_K
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 CLEAR = Color(1.0, 1.0, 1.0, 1.0)
 

@@ -15,6 +15,7 @@ import torch
 
 from forma_tpu_torch.ops import _build
 from forma_tpu_torch.probes import texture_fold as k5
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 sys.path.insert(0, str(FsPath(__file__).resolve().parents[1] / "tools"))
 import texture_fold_probe  # noqa: E402

@@ -17,6 +17,7 @@ from forma_tpu.demos import scenes as jax_scenes
 from forma_tpu_torch import Renderer, Timings, profile_stages, profiling
 from forma_tpu_torch.convert import composition_from_jax
 from forma_tpu_torch.ops import pipeline
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 CLEAR = forma_tpu_torch.Color(1.0, 1.0, 1.0, 1.0)
 

@@ -21,6 +21,7 @@ from forma_tpu.ops import ff64 as jff64
 from forma_tpu.ops import line_setup as jls
 from forma_tpu.ops import rasterize as jras
 from forma_tpu_torch.ops import ff64, line_setup, rasterize
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 W, H = 256, 128
 ROWS, TILES_X = H // 16, W // 16

@@ -28,6 +28,7 @@ from forma_tpu_torch import Caps, Renderer
 from forma_tpu_torch.convert import composition_from_jax, from_jax_args
 from forma_tpu_torch.ops import _build, pipeline
 from forma_tpu_torch.ops.paint import Features
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 CLEAR = Color(1.0, 1.0, 1.0, 1.0)
 SOLID_E2E = [

@@ -20,7 +20,15 @@
   wide-key fallback, and the line path at n = 1 against `render_frame`;
 - the mesh: `all_to_all` is its own inverse, `pmax` / `psum`, the
   exchange blocks against a plain slicing of the sorted stream, and too
-  few devices or a CPU shard for a CUDA renderer raise."""
+  few devices or a CPU shard for a CUDA renderer raise;
+- the sharded frames as graphs (`torch_fixtures.py`'s stand-in graph):
+  both facades, whole in one graph and one graph a card's piece,
+  bit-equal to the eager facades and to JAX; meshes keyed by their
+  devices; the three entry points alternating on one renderer, one graph
+  a key; a grown `xcap` or line bucket superseding the old line graphs;
+  no host read inside either frame; the line frame's halves called by
+  hand for two groups of shards.  JAX's frames are computed once a
+  module (`jax_frames`)."""
 
 import numpy as np
 import pytest
@@ -40,6 +48,7 @@ from forma_tpu.ops.line_setup import line_setup_pairs as jax_line_setup_pairs
 from forma_tpu.renderer import Renderer as JaxRenderer
 from forma_tpu_torch import RGBA, Caps, Renderer
 from forma_tpu_torch.convert import composition_from_jax
+from forma_tpu_torch.graphs import FrameGraphs
 from forma_tpu_torch.mesh import Mesh
 from forma_tpu_torch.ops import pipeline
 from forma_tpu_torch.ops.line_setup import line_setup_pairs
@@ -49,6 +58,7 @@ from forma_tpu_torch.ops.rasterize_kernel import PACKED_SENTINEL, ZERO_PAYLOAD
 
 from test_multichip import _prep_scene
 from test_multichip_lines import _scene_args, custom_circle_path
+from torch_fixtures import cpu_graphs, no_reads, one_torch_thread  # noqa: F401 (fixtures)
 
 N = 8
 DEVICES = ["cpu"] * N
@@ -151,26 +161,54 @@ def _full_feature(width=64, height=256):
 
 # -- the sharded pipelines against JAX's --------------------------------------
 
+ROW_CAPS = (2048, 2048, 2048, 8)  # `test_multichip.py`'s buckets
 
-def test_row_sharded_circles_matches_jax():
+
+@pytest.fixture(scope="module")
+def jax_frames():
+    """JAX's sharded frames, each computed (and compiled) once a module:
+    `get("rows")` is `test_multichip.py`'s circles frame (64x256, 2 tile
+    rows a shard), `get("lines", scene, vline, xcap)` a line-sharded
+    frame of `test_multichip_lines.py`'s circles or full-bleed scene at
+    64x256; each returns (JAX's arguments, features, frame, diag)."""
+    done = {}
+
+    def get(path, scene="circles", vline=None, xcap=None):
+        key = (path, scene, vline, xcap)
+        if key not in done:
+            mesh = jax.make_mesh((N,), ("rows",))
+            if path == "rows":
+                args, features = _prep_scene(64, 256)
+                out = jpipe.render_frame_sharded(
+                    *args, width=64, height=256, rows=2, tiles_x=4,
+                    caps=jpipe.Caps(*ROW_CAPS), features=features, channels=CHANNELS,
+                    mesh=mesh)
+            else:
+                comp = _circles() if scene == "circles" else _full_bleed()
+                _, args, features = _scene_args(comp, 64, 256)
+                out = jpipe.render_frame_sharded_lines(
+                    *args, width=64, height=256, rows=2, tiles_x=4,
+                    caps=jpipe.Caps(vline=vline, run=512, virt=512, k=8),
+                    features=features, channels=CHANNELS, mesh=mesh, xcap=xcap)
+            done[key] = (args, features, np.asarray(out[0]), np.asarray(out[1]))
+        return done[key]
+
+    return get
+
+
+def test_row_sharded_circles_matches_jax(jax_frames):
     """`test_multichip.py`'s scene and buckets: the port's shards
     concatenated equal JAX's sharded frame, and the pmax'd diag equals
     JAX's."""
     width, rows = 64, 2
-    height = rows * 16 * N
-    args, features = _prep_scene(width, height)
-    caps = jpipe.Caps(vline=2048, run=2048, virt=2048, k=8)
-    want, want_d = jpipe.render_frame_sharded(
-        *args, width=width, height=height, rows=rows, tiles_x=width // 16,
-        caps=caps, features=features, channels=CHANNELS, mesh=jax.make_mesh((N,), ("rows",)),
-    )
+    args, features, want, want_d = jax_frames("rows")
     frames, diag = pipeline.render_frame_sharded(
-        *_port_args(args), width, height, rows, width // 16, Caps(*caps),
+        *_port_args(args), width, rows * 16 * N, rows, width // 16, Caps(*ROW_CAPS),
         Features(*features), CHANNELS, Mesh(DEVICES),
     )
     assert len(frames) == N and frames[0].shape == (rows * 16, width, 4)
-    np.testing.assert_array_equal(_cat(frames), np.asarray(want))
-    np.testing.assert_array_equal(diag.numpy(), np.asarray(want_d))
+    np.testing.assert_array_equal(_cat(frames), want)
+    np.testing.assert_array_equal(diag.numpy(), want_d)
 
 
 @pytest.mark.parametrize("scene, vline, xcap, clamped", [
@@ -179,7 +217,7 @@ def test_row_sharded_circles_matches_jax():
     pytest.param("circles", 96, 512, 8, id="circles-clamped"),
     pytest.param("full_bleed", 48, 256, 5, id="full_bleed-clamped"),
 ])
-def test_line_sharded_matches_jax(scene, vline, xcap, clamped, monkeypatch):
+def test_line_sharded_matches_jax(scene, vline, xcap, clamped, monkeypatch, jax_frames):
     """`test_multichip_lines.py`'s circles and full-bleed / band-crossing
     frames: bit-equal to JAX's, all 8 diag entries equal.  At
     `_compare`'s buckets (`xcap` 1024) no block's start clamps; at the
@@ -188,13 +226,8 @@ def test_line_sharded_matches_jax(scene, vline, xcap, clamped, monkeypatch):
     mask must match JAX's `dynamic_slice` (every frame still fits its
     buckets and `xcap`)."""
     width, height = 64, 256
-    comp = _circles() if scene == "circles" else _full_bleed()
-    _, sharded, features = _scene_args(comp, width, height)
-    caps = jpipe.Caps(vline=vline, run=512, virt=512, k=8)
-    want, want_d = jpipe.render_frame_sharded_lines(
-        *sharded, width=width, height=height, rows=2, tiles_x=4, caps=caps,
-        features=features, channels=CHANNELS, mesh=jax.make_mesh((N,), ("rows",)), xcap=xcap,
-    )
+    sharded, features, want, want_d = jax_frames("lines", scene, vline, xcap)
+    caps = Caps(vline=vline, run=512, virt=512, k=8)
     shards_clamped = []
     cut = pipeline._exchange_blocks
 
@@ -206,15 +239,15 @@ def test_line_sharded_matches_jax(scene, vline, xcap, clamped, monkeypatch):
 
     monkeypatch.setattr(pipeline, "_exchange_blocks", counting)
     frames, diag = pipeline.render_frame_sharded_lines(
-        *_port_args(sharded), width, height, 2, 4, Caps(*caps), Features(*features),
+        *_port_args(sharded), width, height, 2, 4, caps, Features(*features),
         CHANNELS, Mesh(DEVICES), xcap,
     )
     assert sum(shards_clamped) == clamped
-    np.testing.assert_array_equal(_cat(frames), np.asarray(want))
+    np.testing.assert_array_equal(_cat(frames), want)
     d = diag.numpy()
     assert d.shape == (8,) and d[pipeline.DIAG_SEGS] > 0
     assert d[pipeline.DIAG_XPAIR] <= xcap and d[pipeline.DIAG_VLINES] <= vline
-    np.testing.assert_array_equal(d, np.asarray(want_d))
+    np.testing.assert_array_equal(d, want_d)
 
 
 @pytest.mark.parametrize("path", ["rows", "lines"])
@@ -434,3 +467,171 @@ def test_too_few_devices_and_wrong_device_types_raise():
         r._shard_mesh(2, ["cpu"] * 2)
     with pytest.raises(ValueError, match="one type"):
         Mesh(["cpu", "cuda:0"])
+
+
+# -- the sharded frames as graphs ---------------------------------------------
+
+SHARDED = {"rows": "render_device_sharded", "lines": "render_device_sharded_lines"}
+# JAX's frame of each case: `jax_frames`' arguments (line frames at
+# `_compare`'s buckets, which every facade frame here fits as well).
+GRAPH_CASES = {("rows", "circles"): ("rows",),
+               ("lines", "circles"): ("lines", "circles", 512, 1024),
+               ("lines", "full_bleed"): ("lines", "full_bleed", 512, 1024)}
+
+
+def _graph_renderer(cpu_graphs, monkeypatch, form: str):
+    """A CPU renderer whose frames go through its graphs (the stand-in
+    graph): a sharded frame whole in one graph ("one_card", as when every
+    shard sits on the renderer's card), or one graph a card's piece
+    ("per_card", forced: on the CPU every shard shares one device)."""
+    r = cpu_graphs(Renderer("cpu"))
+    if form == "per_card":
+        monkeypatch.setattr(r, "_one_card", lambda mesh: False)
+    return r
+
+
+@pytest.mark.parametrize("form", ["one_card", "per_card"])
+@pytest.mark.parametrize("path, scene", list(GRAPH_CASES))
+def test_graph_facades_match_eager_and_jax(path, scene, form, cpu_graphs, monkeypatch,
+                                           jax_frames):
+    """Both facades through `FrameGraphs`, in both forms: frames and diag
+    bit-equal to the eager facade's and to JAX's sharded frame; the live
+    graphs are the whole frame's one, or a card's row piece, or its line
+    front and back; a second frame (on a freshly built mesh, as every
+    facade call builds one) replays them and captures nothing."""
+    width, height = 64, 256
+    comp = composition_from_jax(_circles() if scene == "circles" else _full_bleed())
+    _, _, want, want_d = jax_frames(*GRAPH_CASES[path, scene])
+    r = _graph_renderer(cpu_graphs, monkeypatch, form)
+    call = getattr(r, SHARDED[path])
+    frames, d = call(comp, width, height, CLEAR, devices=DEVICES)
+    eager, de = getattr(Renderer("cpu"), SHARDED[path])(comp, width, height, CLEAR,
+                                                        devices=DEVICES)
+    np.testing.assert_array_equal(_cat(frames), _cat(eager))
+    np.testing.assert_array_equal(d, de)
+    np.testing.assert_array_equal(_cat(frames), want)
+    np.testing.assert_array_equal(d, want_d)
+    pieces = {"one_card": [pipeline.render_frame_sharded if path == "rows"
+                           else pipeline.render_frame_sharded_lines],
+              "per_card": [pipeline.row_shards] if path == "rows"
+              else [pipeline.line_front, pipeline.line_back]}[form]
+    assert [k[0] for k in r.graphs._graphs] == pieces
+    captures, replays = r.graphs.captures, r.graphs.replays
+    again, d2 = call(comp, width, height, CLEAR, devices=DEVICES)
+    assert r.graphs.captures == captures and r.graphs.replays == replays + len(pieces)
+    np.testing.assert_array_equal(_cat(again), want)
+    np.testing.assert_array_equal(d2, want_d)
+
+
+def test_a_fresh_mesh_keys_alike():
+    """Meshes of the same devices are equal and hash alike, so a frame's
+    key does not change with the `Mesh` object; other devices key apart."""
+    assert Mesh(DEVICES) == Mesh(DEVICES) and hash(Mesh(DEVICES)) == hash(Mesh(DEVICES))
+    assert Mesh(DEVICES) != Mesh(["cpu"] * 4)
+    fg = FrameGraphs("cpu")
+    args = (torch.zeros(3), 64, 256, 2, 4, Caps())
+    keys = [fg.key(pipeline.render_frame_sharded, (*args, Mesh(d)), {}, {})[0]
+            for d in (DEVICES, DEVICES, ["cpu"] * 4)]
+    assert keys[0] == keys[1] != keys[2]
+
+
+def test_alternating_frames_capture_once_per_key(cpu_graphs):
+    """`render_device`, the row-sharded and the line-sharded frame in turn
+    on one renderer: a first round captures one graph a key and one more
+    for each bucket growth (which supersedes the graph of the old
+    buckets), leaving three; further rounds only replay them."""
+    width, height = 64, 256
+    comp = composition_from_jax(_circles())
+    r = cpu_graphs(Renderer("cpu"))
+    calls = (lambda: r.render_device(comp, width, height, CLEAR),
+             lambda: r.render_device_sharded(comp, width, height, CLEAR, devices=DEVICES),
+             lambda: r.render_device_sharded_lines(comp, width, height, CLEAR,
+                                                   devices=DEVICES))
+    for call in calls:
+        call()
+    captures = r.graphs.captures
+    assert captures == 3 + r.regrow_count and len(r.graphs) == 3
+    replays = r.graphs.replays
+    for _ in range(2):
+        for call in calls:
+            call()
+    assert r.graphs.captures == captures and len(r.graphs) == 3
+    assert r.graphs.evictions == 0 and r.graphs.replays == replays + 6
+
+
+@pytest.mark.parametrize("grown", ["xcap", "caps_lines"])
+def test_line_regrow_supersedes_line_graphs(grown, cpu_graphs):
+    """A line-sharded frame that outgrows its exchange capacity or its
+    per-shard buckets captures again at the grown ones: the graph of the
+    old ones is dropped (superseded, no eviction), `render_device`'s graph
+    stays, and the frame equals the eager facade's at the same start."""
+    width, height = 64, 200
+    comp = composition_from_jax(_circles(24, width, height))
+    start = {"xcap": (Caps(vline=512, run=512, virt=512, k=8), 128),
+             "caps_lines": (Caps(vline=256, run=256, virt=256, k=4), 4096)}[grown]
+    want_r = Renderer("cpu")
+    r = cpu_graphs(Renderer("cpu"))
+    r.render_device(comp, width, height, CLEAR)
+    single, grows = r.graphs.captures, r.regrow_count
+    for rr in (want_r, r):
+        rr._lines_n, (rr._caps_lines, rr._xcap) = N, start
+    want, wd = want_r.render_device_sharded_lines(comp, width, height, CLEAR, devices=DEVICES)
+    frames, d = r.render_device_sharded_lines(comp, width, height, CLEAR, devices=DEVICES)
+    grows = r.regrow_count - grows
+    assert (r._xcap > start[1] if grown == "xcap" else r._caps_lines != start[0])
+    assert grows > 0
+    assert r.graphs.captures - single == grows + 1 and r.graphs.evictions == 0
+    assert [g.buckets for g in r.graphs._graphs.values()] == [
+        ("_caps", r._caps), ("_caps_lines", r._caps_lines, r._xcap)]
+    np.testing.assert_array_equal(_cat(frames), _cat(want))
+    np.testing.assert_array_equal(d, wd)
+
+
+@pytest.mark.parametrize("path", ["rows", "lines"])
+def test_sharded_frames_read_nothing_back(path, no_reads):
+    """With every host read of a tensor made to raise (the plain fold's
+    depth excepted: no graph runs it), both sharded frames run: nothing
+    in them stops a capture."""
+    width, height = 64, 256
+    comp = composition_from_jax(_circles())
+    r = Renderer("cpu")
+    inputs, st_host, chans = r._whole_frame_inputs(comp, width, height, CLEAR, RGBA)
+    pairs = r._prepare_line_pairs(comp, N)
+    mesh, caps = Mesh(DEVICES), Caps(vline=512, run=512, virt=512, k=8)
+    with no_reads():
+        if path == "rows":
+            frames, diag = pipeline.render_frame_sharded(
+                *inputs, width, height, 2, 4, caps, st_host.features, chans, mesh)
+        else:
+            frames, diag = pipeline.render_frame_sharded_lines(
+                *pairs, *inputs[3:], width, height, 2, 4, caps, st_host.features, chans,
+                mesh, 1024)
+    assert len(frames) == N and diag.shape == ((6,) if path == "rows" else (8,))
+
+
+def test_line_halves_by_card_equal_the_one_call_frame(jax_frames):
+    """`line_front` and `line_back` called by hand for two groups of
+    shards, as two cards would hold them (0-3 and 4-7), with the exchange
+    (`all_to_all`) and the segment sum (`psum`) between the halves: the
+    frame and diag of the one-call line frame, and of JAX's."""
+    width, height, rows, tiles_x = 64, 256, 2, 4
+    args, features, want, want_d = jax_frames("lines", "circles", 512, 1024)
+    a = _port_args(args)
+    caps, mesh = Caps(vline=512, run=512, virt=512, k=8), Mesh(DEVICES)
+    one, one_d = pipeline.render_frame_sharded_lines(
+        *a, width, height, rows, tiles_x, caps, Features(*features), CHANNELS, mesh, 1024)
+    slot_bits = pipeline.slot_bits_for(a[9]["orders"].shape[0], rows * N, tiles_x)
+    groups = ((0, 1, 2, 3), (4, 5, 6, 7))
+    fronts = [f for s in groups for f in pipeline.line_front(
+        *a[:9], width, height, rows, tiles_x, caps, N, 1024, slot_bits, shards=s)]
+    recv_k = mesh.all_to_all([f[0] for f in fronts])
+    recv_p = mesh.all_to_all([f[1] for f in fronts])
+    total_segs = mesh.psum([f[3] for f in fronts])
+    backs = [b for s in groups for b in pipeline.line_back(
+        [recv_k[i] for i in s], [recv_p[i] for i in s], [fronts[i][2] for i in s],
+        [fronts[i][4] for i in s], total_segs, a[9], a[10], rows, tiles_x, caps,
+        Features(*features), CHANNELS, slot_bits, shards=s)]
+    frames, diag = [b[0] for b in backs], mesh.pmax([b[1] for b in backs])
+    for got, got_d in ((frames, diag), (one, one_d)):
+        np.testing.assert_array_equal(_cat(got), want)
+        np.testing.assert_array_equal(got_d.numpy(), want_d)

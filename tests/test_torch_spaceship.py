@@ -17,6 +17,7 @@ from forma_tpu_torch import Renderer
 from forma_tpu_torch.demos.spaceship import Spaceship
 from forma_tpu_torch.ops import pipeline as pipe
 from test_torch_host import _assert_same_scene, _assert_same_state
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 W = H = 128
 

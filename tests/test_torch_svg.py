@@ -21,6 +21,7 @@ from forma_tpu_torch.demos import scenes as port_scenes
 from forma_tpu_torch.demos import svg as port_svg
 from test_svg import SVG
 from test_torch_host import _assert_same_scene, _assert_same_state
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 CLEAR_J = forma_tpu.Color(1.0, 1.0, 1.0, 1.0)
 CLEAR = forma_tpu_torch.Color(1.0, 1.0, 1.0, 1.0)

@@ -26,6 +26,7 @@ from forma_tpu_torch import Renderer
 from forma_tpu_torch.convert import composition_from_jax
 from forma_tpu_torch.ops import fold_kernel, paint
 from forma_tpu_torch.ops.fold_kernel import style_layout, variant
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = FsPath(__file__).resolve().parents[1]
 TEXTURE_E2E = "tests__texture__cpu"

@@ -46,6 +46,7 @@ from test_torch_paint import (
     _clip_masks, _gradient_fills, _virtual_and_fill_rules,
 )
 from test_torch_texture import JAX_SCENES
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 CLEAR = Color(1.0, 1.0, 1.0, 1.0)
 LAYER_MASK = (1 << 21) - 1
