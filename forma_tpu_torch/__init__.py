@@ -25,7 +25,8 @@ CUDA device run the kernels; tensors on the CPU run each kernel's plain
 PyTorch version.  `Renderer(expand="fused")` (the default) rasterizes
 through the fused expand + emit kernel, `expand="split"` through the
 expand kernel and the PyTorch emit.  `Renderer.profile_frame` times one
-frame stage by stage (`Timings`).
+frame stage by stage (`Timings`); `tracing` holds the port's own spans
+and the stage stamps inside its frame graphs.
 
 Also: `demos.svg` (the SVG front end), `backend_numpy` (the plain numpy
 oracle) and the demo CLI, `python -m forma_tpu_torch.demos.main`.

@@ -17,7 +17,7 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
-from . import consts
+from . import consts, tracing
 from .interner import Interner
 from .math import AffineTransform, GeomPresTransform, GeomPresTransformError
 from .path import Path
@@ -373,33 +373,34 @@ class Layer:
         """Sets a geometry-preserving transform; identity clears it
         (`composition/layer.rs:299-311`).  Raises `GeomPresTransformError`
         when the transform scales up (`transform.rs:109-131`)."""
-        if isinstance(transform, (list, tuple)):
-            transform = AffineTransform.from_array(transform)
-        if isinstance(transform, AffineTransform):
-            if transform.is_identity():
-                gp = None
+        with tracing.span("transforms"):
+            if isinstance(transform, (list, tuple)):
+                transform = AffineTransform.from_array(transform)
+            if isinstance(transform, AffineTransform):
+                if transform.is_identity():
+                    gp = None
+                else:
+                    gp = GeomPresTransform.try_new(transform)
+                    if gp is None:
+                        raise GeomPresTransformError(
+                            "transform scales up beyond the geometry-preserving limit"
+                        )
             else:
-                gp = GeomPresTransform.try_new(transform)
-                if gp is None:
-                    raise GeomPresTransformError(
-                        "transform scales up beyond the geometry-preserving limit"
-                    )
-        else:
-            gp = transform
-        reg = self._shared.registry
-        if gp is None:
-            new6, new_has = _IDENTITY6, False
-        else:
-            new6 = np.asarray(gp.as_slice(), np.float32)
-            new_has = True
-        if new_has != bool(reg.has_t[self._slot]) or (
-            new_has and not np.array_equal(new6, reg.tform[self._slot])
-        ):
-            reg.unchanged[self._slot] = 0
-            self._shared.tform_version += 1
-            reg.tform[self._slot] = new6
-            reg.has_t[self._slot] = new_has
-        return self
+                gp = transform
+            reg = self._shared.registry
+            if gp is None:
+                new6, new_has = _IDENTITY6, False
+            else:
+                new6 = np.asarray(gp.as_slice(), np.float32)
+                new_has = True
+            if new_has != bool(reg.has_t[self._slot]) or (
+                new_has and not np.array_equal(new6, reg.tform[self._slot])
+            ):
+                reg.unchanged[self._slot] = 0
+                self._shared.tform_version += 1
+                reg.tform[self._slot] = new6
+                reg.has_t[self._slot] = new_has
+            return self
 
     def set_props(self, props: Props) -> "Layer":
         if self.props != props:
@@ -460,38 +461,39 @@ class Composition:
         """
         from .math import _MAX_SCALING_FACTOR_X, _MAX_SCALING_FACTOR_Y
 
-        t = np.ascontiguousarray(np.asarray(transforms, np.float32).reshape(-1, 6))
-        orders = np.asarray(orders, np.uint32).ravel()
-        if t.shape[0] != orders.shape[0]:
-            raise ValueError("orders and transforms length mismatch")
-        su = t[:, 0] * t[:, 0] + t[:, 1] * t[:, 1]
-        sv = t[:, 2] * t[:, 2] + t[:, 3] * t[:, 3]
-        if (su > np.float32(_MAX_SCALING_FACTOR_X) ** 2).any() or (
-            sv > np.float32(_MAX_SCALING_FACTOR_Y) ** 2
-        ).any():
-            raise GeomPresTransformError(
-                "transform scales up beyond the geometry-preserving limit"
-            )
-        sorted_orders, sorted_slots = self._order_slot_map()
-        pos = np.searchsorted(sorted_orders, orders)
-        pos = np.minimum(pos, max(len(sorted_orders) - 1, 0))
-        if len(sorted_orders) == 0 or not np.array_equal(sorted_orders[pos], orders):
-            raise KeyError("set_transforms: some orders have no layer")
-        slots = sorted_slots[pos]
-        reg = self._shared.registry
-        # Only rows whose transform actually changes dirty the damage caches
-        # and bump the version — a caller re-sending identical transforms each
-        # frame must not defeat the no-dispatch fast path (`Layer.set_transform`
-        # no-ops on equality; this is its vectorized twin).
-        has_t = (t != _IDENTITY6).any(axis=1)
-        changed = (reg.tform[slots] != t).any(axis=1) | (reg.has_t[slots] != has_t)
-        if not changed.any():
-            return
-        cslots = slots[changed]
-        reg.tform[cslots] = t[changed]
-        reg.has_t[cslots] = has_t[changed]
-        reg.unchanged[cslots] = 0
-        self._shared.tform_version += 1
+        with tracing.span("transforms"):
+            t = np.ascontiguousarray(np.asarray(transforms, np.float32).reshape(-1, 6))
+            orders = np.asarray(orders, np.uint32).ravel()
+            if t.shape[0] != orders.shape[0]:
+                raise ValueError("orders and transforms length mismatch")
+            su = t[:, 0] * t[:, 0] + t[:, 1] * t[:, 1]
+            sv = t[:, 2] * t[:, 2] + t[:, 3] * t[:, 3]
+            if (su > np.float32(_MAX_SCALING_FACTOR_X) ** 2).any() or (
+                sv > np.float32(_MAX_SCALING_FACTOR_Y) ** 2
+            ).any():
+                raise GeomPresTransformError(
+                    "transform scales up beyond the geometry-preserving limit"
+                )
+            sorted_orders, sorted_slots = self._order_slot_map()
+            pos = np.searchsorted(sorted_orders, orders)
+            pos = np.minimum(pos, max(len(sorted_orders) - 1, 0))
+            if len(sorted_orders) == 0 or not np.array_equal(sorted_orders[pos], orders):
+                raise KeyError("set_transforms: some orders have no layer")
+            slots = sorted_slots[pos]
+            reg = self._shared.registry
+            # Only rows whose transform actually changes dirty the damage caches
+            # and bump the version — a caller re-sending identical transforms each
+            # frame must not defeat the no-dispatch fast path (`Layer.set_transform`
+            # no-ops on equality; this is its vectorized twin).
+            has_t = (t != _IDENTITY6).any(axis=1)
+            changed = (reg.tform[slots] != t).any(axis=1) | (reg.has_t[slots] != has_t)
+            if not changed.any():
+                return
+            cslots = slots[changed]
+            reg.tform[cslots] = t[changed]
+            reg.has_t[cslots] = has_t[changed]
+            reg.unchanged[cslots] = 0
+            self._shared.tform_version += 1
 
     def is_empty(self) -> bool:
         return not self.layers

@@ -57,7 +57,9 @@ prescribes.  Cached blocks (a dropped pool's too) are released
 (`torch.cuda.empty_cache()`) before the warm-up and again before
 `torch.cuda.graph` records, so that a large frame's warm-up and its graph
 do not both hold memory.  Each `FrameGraphs` records on a stream of its
-own card.
+own card.  The stage stamps' accumulator (`tracing.accumulator`), whose
+address the graphs hold, is allocated before any recording, outside the
+pool.
 Alone, a failure in either raises: nothing falls back to the eager frame.
 
 With `witness` set (`FrameGraphs.witness`, off by default), each capture
@@ -80,6 +82,7 @@ from typing import NamedTuple
 import torch
 from torch.utils import _pytree as pytree
 
+from . import tracing
 from .ops import _build
 
 BOUND = 8  # graphs a renderer keeps
@@ -281,23 +284,25 @@ class FrameGraphs:
         self._drop(list(self._graphs)[:max(0, len(self._graphs) - BOUND + 1)])
 
     def _capture(self, key, fn, leaves, spec, scalars, buckets) -> _Graph:
-        self._make_room(buckets)
-        alone = self._pool is None
-        if alone:
-            self._pool = torch.cuda.graph_pool_handle()
-        try:
-            g = self._record(fn, leaves, spec, scalars, buckets, alone)
-        except BaseException:
-            if not self._graphs:  # a failed first capture leaves no pool
-                self._pool = None
-            raise
-        self._graphs[key] = g
-        self._pool_bytes += g.capture.pool_bytes
-        self.captures += 1
-        return g
+        with tracing.span("capture"):
+            self._make_room(buckets)
+            alone = self._pool is None
+            if alone:
+                self._pool = torch.cuda.graph_pool_handle()
+            try:
+                g = self._record(fn, leaves, spec, scalars, buckets, alone)
+            except BaseException:
+                if not self._graphs:  # a failed first capture leaves no pool
+                    self._pool = None
+                raise
+            self._graphs[key] = g
+            self._pool_bytes += g.capture.pool_bytes
+            self.captures += 1
+            return g
 
     def _record(self, fn, leaves, spec, scalars, buckets, warm_up: bool) -> _Graph:
         dev = self.device
+        tracing.accumulator(dev)  # the stage stamps' address, outside the pool
         with torch.cuda.device(dev):
             g = _Graph(buckets, leaves, scalars, dev)
             g.load(leaves, scalars)

@@ -62,6 +62,8 @@ _SIGNATURES = {
     "forma_seg_loop": [_P, _I64, _I64, _P, _P, _P],
     "forma_empty": [_P],
     "forma_grid_scatter": [_P] * 3 + [_I64] * 2 + [_P, _P],
+    # The stage stamp (`tracing.mark`), counted in no launch counter.
+    "forma_stage_stamp": [_P, _I64, _I64, _I64, _P],
 }
 
 _lib = None

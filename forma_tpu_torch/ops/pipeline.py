@@ -34,6 +34,10 @@ every shard on its device, in pieces of one call a card (`row_shards`;
 a device value on the host (`tests/test_torch_graphs.py` and
 `tests/test_torch_sharded.py` hold the frames to it): that is what lets a
 frame, or one card's piece of it, be captured as a CUDA graph.
+
+`render_frame` and `render_frame_cached` stamp their stage boundaries
+(`tracing.marker`: on a card, nodes of the captured graph), unless
+`plain`; the sharded frames stamp nothing.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import consts
+from .. import consts, tracing
 from . import line_setup as _ls
 from . import paint as _paint
 from . import rasterize as _raster
@@ -104,13 +108,17 @@ def _core(
     caps: Caps, features: Features, channels,
     row_lo=0, cache=None, crop_x=None, crop_y=None,
     expand: str = "fused", plain: bool = False, taps=None,
+    stamps: bool = False,  # stamp the stage boundaries (`tracing.marker`)
 ):
+    stamp = tracing.marker(px.device, stamps)
+    stamp()
     params, slots, lengths, vline_ends = _ls.line_setup(
         px, py, line_slot, g_slot, g_valid, g_t, g_has_t, width, height,
         k_seg=K_SEG,
     )
     v_total = vline_ends[-1]
     total_segs = lengths.sum(dtype=torch.int64)
+    stamp("line_setup")
 
     slot_bits = slot_bits_for(st["orders"].shape[0], rows, tiles_x)
     key_hi, key_lo, payload = _raster.rasterize_sort(
@@ -119,11 +127,12 @@ def _core(
         caps.vline, K_SEG, rows, tiles_x, row_lo,
         slot_bits=slot_bits, expand=expand, plain=plain, taps=taps,
     )
+    stamp("rasterize_sort")
     return _back(
         key_hi, key_lo, payload, v_total, total_segs,
         st, clear, rows, tiles_x, caps, features, channels,
         row_lo=row_lo, cache=cache, crop_x=crop_x, crop_y=crop_y,
-        presorted=slot_bits > 0, plain=plain, taps=taps,
+        presorted=slot_bits > 0, plain=plain, taps=taps, stamp=stamp,
     )
 
 
@@ -139,6 +148,7 @@ def _back(
     presorted: bool = False,  # sorted by the packed key: runs arrive in
     #                           carry-chain order, and src_u == src2_u
     plain: bool = False, taps=None,
+    stamp=tracing.no_mark,  # `_core`'s stage stamps (`tracing.marker`)
 ):
     """Everything after the segment sort: runs, carries, units, the
     occlusion pass, paint, sRGB; with `cache`, the tile-unchanged test,
@@ -169,6 +179,7 @@ def _back(
         ),
         presorted=presorted, plain=plain, taps=taps,
     )
+    stamp("runs")
 
     key_u, layer_u, src_u, src2_u, virt_u, k_u, u_valid, _ = (
         _runs.build_units(
@@ -179,6 +190,7 @@ def _back(
             caps.virt,
         )
     )
+    stamp("units")
 
     n_tiles = rows * tiles_x
     dev = key_u.device
@@ -242,6 +254,7 @@ def _back(
             reduce="amax",
         )
         k_needed = torch.where(tile_skip, 0, kmax_t[:n_tiles]).max()
+    stamp("cull")
 
     # Presorted, src_u == src2_u: passing src2_u for both keeps the fold
     # in table mode, one index load per unit.
@@ -252,11 +265,13 @@ def _back(
         rows, tiles_x, caps.k, features, st["stops"].shape[1], st["atlas"],
         plain=plain, taps=taps, row_lo=row_lo, tile_skip=tile_skip,
     )
+    stamp("paint")
     packed = _srgb.pack_srgb(frame, channels)
 
     n_dmg = torch.zeros((), dtype=torch.int64, device=dev)
     dmg = None
     if cache is not None:
+        stamp("srgb")
         # Unchanged and out-of-crop tiles re-emit the previous frame's
         # pixels, so the frame returned is the next cache state.
         reemit = tile_unch if out_of_crop is None else tile_unch | out_of_crop
@@ -294,6 +309,7 @@ def _back(
             n_dmg,
         ]
     )
+    stamp("srgb" if cache is None else "damage", last=True)
     if cache is not None:
         return packed, diag, counts, dmg
     return packed, diag
@@ -310,11 +326,13 @@ def render_frame(
     taps=None,  # dict: receives each kernel's input tuple when given
 ):
     """Single-device render of tile rows [row_lo, row_lo + rows); returns
-    (u8 frame [rows*16, tiles_x*16, C], int64 [6] diagnostics)."""
+    (u8 frame [rows*16, tiles_x*16, C], int64 [6] diagnostics).  Unless
+    `plain`, the stages stamp their boundaries (`tracing`)."""
     return _core(
         px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
         width, height, rows, tiles_x, caps, features, channels,
         row_lo=row_lo, crop_x=crop_x, expand=expand, plain=plain, taps=taps,
+        stamps=not plain,
     )
 
 
@@ -335,12 +353,14 @@ def render_frame_cached(
     [DMG_CAP, TILE_HEIGHT, TILE_WIDTH * C])): the first diag[DIAG_DMG]
     entries are the changed tiles' indices and pixels.  `cache_ok` False
     (no usable previous frame, a bool or an int32 0-d tensor) marks every
-    tile changed."""
+    tile changed.  Unless `plain`, the stages stamp their boundaries
+    (`tracing`), the damaged tiles' compaction as `damage`."""
     return _core(
         px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
         width, height, rows, tiles_x, caps, features, channels,
         cache=(prev_frame, prev_counts, st_unchanged, cache_ok),
         crop_x=crop_x, crop_y=crop_y, expand=expand, plain=plain, taps=taps,
+        stamps=not plain,
     )
 
 

@@ -17,13 +17,14 @@ per path:
    one warm-up, for the graph frame (`render`: one replay of the frame's
    CUDA graph, `graphs.py`) and the eager frame (`render_device` with
    `taps`, op by op, then the same readback);
-2. the fenced stage table, eager (a graph cannot be fenced inside): every
-   pipeline stage wrapped in `torch.cuda.synchronize()` before and after,
-   median ms over the frames; nested rows ("  of which") are inside the
-   row above them;
-3. `torch.profiler` over 2 frames, graph and eager: the device time of
-   all device-side events, the device's busy share of the frames' wall
-   time, and the events and host ops that take the most device time.
+2. the graph frame's stage table, from the stage stamps the frame
+   carries (`tracing.stage_ms`): mean device ms a stage over `--frames`
+   graph frames, and their sum;
+3. beside it, the fenced stage table, eager (a graph cannot be fenced
+   inside): every pipeline stage wrapped in `torch.cuda.synchronize()`
+   before and after, median ms over the frames; nested rows ("  of
+   which") are inside the row above them;
+4. `Renderer.profile_frame`'s `Timings`.
 
 Where the frame's [row | slot | tx] key passes 31 bits (7680x4320, for
 example), both expand paths take the two-key route (K1, the emit in
@@ -40,7 +41,7 @@ import time
 
 import torch
 
-from . import Color, Composition, Renderer
+from . import Color, Composition, Renderer, tracing
 from .demos import scenes
 from .demos.svg import Svg
 from .ops import pipeline, rasterize
@@ -89,27 +90,16 @@ def _stage_table(r, comp, n, size):
     print(f"  renderer host work, diag sync and frame readback: {total - top:.2f} ms")
 
 
-def _device_profile(r, comp, size, eager):
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        _frames(r, comp, 2, size, eager)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-    avgs = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    # Device-side events (kernels, copies, memsets) only: a host op's self
-    # device time repeats the time of the kernels it launched.
-    busy = sum(dev_us(e) for e in avgs if str(e.device_type).endswith("CUDA")) / 1e3
-    print(f"  profiler, 2 {'eager' if eager else 'graph'} frames: self device time "
-          f"{busy:.2f} ms of {wall:.2f} ms wall "
-          f"(device busy {100 * busy / wall:.1f}%)")
-    for e in sorted(avgs, key=dev_us, reverse=True)[:10]:
-        print(f"    {dev_us(e) / 1e3:8.3f} ms  {e.count:5d} calls  {e.key[:90]}")
+def _graph_stage_table(r, comp, n, size):
+    """The graph frames' stages, from their stage stamps."""
+    tracing.reset(r.device)
+    frames = _frames(r, comp, n, size)
+    ms = tracing.stage_ms(r.device)
+    print(f"  graph frame, stage stamps: {tracing.frames(r.device)} frames, unfenced "
+          f"median {statistics.median(frames):.2f} ms")
+    for stage, v in ms.items():
+        print(f"  {stage}: {v:.3f} ms")
+    print(f"  the stages' sum: {sum(ms.values()):.3f} ms")
 
 
 def main(argv=None):
@@ -141,10 +131,9 @@ def main(argv=None):
         cap = r.graphs.last_capture
         print(f"  graph: capture {cap.warmup_s:.3f} s warm-up + {cap.capture_s:.3f} s "
               f"recording, pool {cap.pool_bytes} bytes")
+        _graph_stage_table(r, comp, args.frames, size)
         _stage_table(r, comp, args.frames, size)
         print(f"  Renderer.profile_frame: {timings_line(r.profile_frame(comp, *size, CLEAR))}")
-        for eager in (False, True):
-            _device_profile(r, comp, size, eager)
 
 
 if __name__ == "__main__":

@@ -135,10 +135,9 @@ def _min_ms(fn, device, n: int = REPEATS) -> float:
 def profile_frame(renderer, composition, width, height, clear_color, channels=None):
     """Renders the frame once to settle the capacity buckets, then
     `REPEATS` more eagerly with every top-level stage fenced, then
-    `REPEATS` graph frames (`fused_frame`); returns `Timings` and stores
-    it on `renderer.last_timings`.  Works on either sort key (a two-key
-    frame's `rasterize_sort` holds K1, the two-key emit and the int64
-    sort)."""
+    `REPEATS` graph frames (`fused_frame`); returns `Timings`.  Works on
+    either sort key (a two-key frame's `rasterize_sort` holds K1, the
+    two-key emit and the int64 sort)."""
     channels = channels or RGBA
     dev = renderer.device
 
@@ -163,14 +162,12 @@ def profile_frame(renderer, composition, width, height, clear_color, channels=No
     fused = _min_ms(lambda: frame(check_caps=False), dev)
     z = torch.zeros((8, 128), dtype=torch.float32, device=dev)
     floor = _min_ms(lambda: z + 1.0, dev)
-    t = Timings(
+    return Timings(
         **{f: min(v) for f, v in per_frame.items()},
         fused_frame=fused,
         dispatch_floor_ms=floor,
         k_active=k_active,
     )
-    renderer.last_timings = t
-    return t
 
 
 def timings_line(t: Timings) -> str:

@@ -36,6 +36,11 @@ them), each card's graphs in their own `FrameGraphs` (`graphs_on`).
 Geometry tensors are cached on the segment buffer's version and only
 re-upload when paths change; per-frame host work is O(#geometries +
 #layers).
+
+Tracing: while a `torch.profiler` session records, the host phases of a
+frame are `tracing` spans (`forma.inputs`, `replay`, `capture`, `wait`,
+`readback`, `write_back`), and `readback_bytes` counts every byte of
+pixels read back.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import consts
+from . import consts, tracing
 from .buffer import RGBA, Buffer, BufferLayerCache, LinearLayout
 from .buffer import normalize_channels as _normalize_channels
 from .composition import Composition
@@ -138,7 +143,6 @@ class Renderer:
         self._caps = caps if caps is not None else _pipe.Caps()
         self._cache_slots = 0  # 32-bit set of handed-out layer-cache ids
         self.last_diag: Optional[np.ndarray] = None
-        self.last_timings = None  # set by profile_frame
         self._last_dmg = None  # compact damaged-tile readback (idx, tiles)
         # `regrow_count` counts entries into the growth loop (tests assert a
         # warmed animation never re-enters it); transform churn between
@@ -148,7 +152,9 @@ class Renderer:
         self._last_tver = None
         self._announced_scale = 1.0
         self._dmg_prefix = _DMG_PREFIX  # adaptive damage-readback prefix
-        self.readback_bytes = 0  # bytes the damage-cached path read back
+        # Bytes read back to the host: every frame's pixels, and the
+        # damage-cached frame's diagnostics and damaged-tile indices.
+        self.readback_bytes = 0
         self._pending = None  # in-flight pipelined frame (ticket, buffer, ...)
         # The frame graphs, one per static key; only a CUDA renderer captures.
         # A sharded frame's pieces on other cards keep theirs in `_card_graphs`.
@@ -470,7 +476,14 @@ class Renderer:
             )
             return out.reshape(height, width, 4)
         frame, _ = self.render_device(composition, width, height, clear_color, channels)
-        return frame[:height, :width].cpu().numpy()
+        return self._read(frame[:height, :width])
+
+    def _read(self, pixels: torch.Tensor) -> np.ndarray:
+        """`pixels` on the host, counted in `readback_bytes`."""
+        with tracing.span("readback"):
+            img = pixels.cpu().numpy()
+        self.readback_bytes += img.nbytes
+        return img
 
     def render_into(
         self,
@@ -500,7 +513,8 @@ class Renderer:
         w, h = layout.width(), layout.height()
         cache = buffer.layer_cache
         if pipelined and cache is not None and crop is None:
-            t = self._dispatch_cached(composition, cache, w, h, clear_color, channels)
+            with tracing.span("inputs"):
+                t = self._dispatch_cached(composition, cache, w, h, clear_color, channels)
             prev = self._pending
             self._pending = (t, buffer, layout, h, w)
             if prev is not None:
@@ -535,12 +549,15 @@ class Renderer:
                 composition, w, h, clear_color, channels,
                 row_span=(y0t, y1t), crop_x=(crop.hor.start, crop.hor.stop),
             )
-            img = frame[: y1 - y0, x0:x1].cpu().numpy()
-            layout.write(buffer.buffer, img, rect=(y0, y1, x0, x1))
+            img = self._read(frame[: y1 - y0, x0:x1])
+            with tracing.span("write_back"):
+                layout.write(buffer.buffer, img, rect=(y0, y1, x0, x1))
             return
         if cache is None:
             frame, _ = self.render_device(composition, w, h, clear_color, channels)
-            layout.write(buffer.buffer, frame[:h, :w].cpu().numpy())
+            img = self._read(frame[:h, :w])
+            with tracing.span("write_back"):
+                layout.write(buffer.buffer, img)
             return
         frame, d = self._render_device_cached(composition, cache, w, h, clear_color,
                                               channels)
@@ -579,12 +596,13 @@ class Renderer:
         dmg = self._last_dmg
         if dmg is not None and n_dmg <= _pipe.DMG_CAP:
             idx, tiles = dmg
-            layout.write_tiles(buffer.buffer, idx[:n_dmg], tiles[:n_dmg])
+            with tracing.span("write_back"):
+                layout.write_tiles(buffer.buffer, idx[:n_dmg], tiles[:n_dmg])
             return
         y0, y1, x0, x1 = (0, h, 0, w) if rect is None else rect
-        img = frame[y0:y1, x0:x1].cpu().numpy()
-        self.readback_bytes += img.nbytes
-        layout.write(buffer.buffer, img, rect=rect)
+        img = self._read(frame[y0:y1, x0:x1])
+        with tracing.span("write_back"):
+            layout.write(buffer.buffer, img, rect=rect)
 
     def _render_device_cached(
         self, composition, cache, width, height, clear_color, channels,
@@ -599,9 +617,10 @@ class Renderer:
         cached pixels; the is_unchanged bits are not updated (a cropped
         render must not certify out-of-crop tiles as current), and the
         whole-frame no-dispatch key resets."""
-        self.flush_pending()
-        t = self._dispatch_cached(composition, cache, width, height, clear_color,
-                                  channels, crop, taps)
+        with tracing.span("inputs"):
+            self.flush_pending()
+            t = self._dispatch_cached(composition, cache, width, height, clear_color,
+                                      channels, crop, taps)
         return self._resolve_cached(t)
 
     def _dispatch_cached(
@@ -708,9 +727,10 @@ class Renderer:
         replay of its graph for this key (`graphs.FrameGraphs.run`; the
         row span, crop bounds and cache state in `scalars` become int32
         device scalars, outside the key), else eagerly."""
-        if not self._compiled(kwargs):
-            return entry(*args, **kwargs, **scalars)
-        return self.graphs.run(entry, args, kwargs, scalars, ("_caps", self._caps))
+        with tracing.span("replay"):
+            if not self._compiled(kwargs):
+                return entry(*args, **kwargs, **scalars)
+            return self.graphs.run(entry, args, kwargs, scalars, ("_caps", self._caps))
 
     def graphs_on(self, device) -> FrameGraphs:
         """The frame graphs of `device`: `graphs` on this renderer's own,
@@ -732,15 +752,15 @@ class Renderer:
         `_compiled` and the shards sit on other cards too, each card's
         piece replays that card's graph (`graphs_on`) and the collectives
         between the pieces run eagerly; else eagerly."""
-        if not self._compiled(kwargs):
-            return entry(*args, **kwargs)
-        if self._one_card(mesh):
-            return self.graphs.run(entry, args, kwargs, {}, buckets)
-
         def run(fn, device, a, k):
             return self.graphs_on(device).run(fn, a, k, {}, buckets)
 
-        return entry(*args, **kwargs, run=run)
+        with tracing.span("replay"):
+            if not self._compiled(kwargs):
+                return entry(*args, **kwargs)
+            if self._one_card(mesh):
+                return self.graphs.run(entry, args, kwargs, {}, buckets)
+            return entry(*args, **kwargs, run=run)
 
     def _issue_cached(self, t):
         """Queues the frame of a ticket with the current caps and its kept
@@ -763,17 +783,18 @@ class Renderer:
         pfx = self._dmg_prefix
         reads = (diag, dmg[0], dmg[1][:pfx])
         event = None
-        if frame.is_cuda:
-            # A fresh pinned set per ticket: two tickets in flight never
-            # share host memory (PyTorch's pinned allocator reuses a block
-            # only after the copies recorded on it have run).
-            host = tuple(torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-                         for a in reads)
-            for h, a in zip(host, reads):
-                h.copy_(a, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            reads = host
+        with tracing.span("readback"):
+            if frame.is_cuda:
+                # A fresh pinned set per ticket: two tickets in flight never
+                # share host memory (PyTorch's pinned allocator reuses a block
+                # only after the copies recorded on it have run).
+                host = tuple(torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                             for a in reads)
+                for h, a in zip(host, reads):
+                    h.copy_(a, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+                reads = host
         self.readback_bytes += sum(a.numel() * a.element_size() for a in reads)
         t.update(frame=frame, counts=counts, dmg=dmg, reads=reads, event=event,
                  pfx=pfx, caps=self._caps)
@@ -804,17 +825,17 @@ class Renderer:
             return t["cache"].prev_frame, self.last_diag
 
         for _ in range(8):
-            if t["event"] is not None:
-                t["event"].synchronize()
-            d, idx_h, head = (a.numpy() for a in t["reads"])
+            with tracing.span("wait"):
+                if t["event"] is not None:
+                    t["event"].synchronize()
+                d, idx_h, head = (a.numpy() for a in t["reads"])
             frame, dmg, pfx = t["frame"], t["dmg"], t["pfx"]
             n_dmg = int(d[_pipe.DIAG_DMG])
             if n_dmg <= pfx or n_dmg > _pipe.DMG_CAP:
                 self._last_dmg = (idx_h, head)
             else:
                 m = min(-(-n_dmg // 64) * 64, _pipe.DMG_CAP)
-                rest = dmg[1][pfx:m].cpu().numpy()
-                self.readback_bytes += rest.nbytes
+                rest = self._read(dmg[1][pfx:m])
                 self._last_dmg = (idx_h, np.concatenate([head, rest], axis=0))
             if n_dmg <= _pipe.DMG_CAP:
                 # 25% headroom, 64-aligned, at least the minimum prefix: it
@@ -889,10 +910,11 @@ class Renderer:
                             clear_color: Color, channels):
         """`_frame_inputs` of a frame rendered whole (no damage cache): the
         last pipelined frame completed and the composition compacted first."""
-        self.flush_pending()
-        composition.compact_geom()
-        composition._shared.props_interner.compact()
-        return self._frame_inputs(composition, width, height, clear_color, channels)
+        with tracing.span("inputs"):
+            self.flush_pending()
+            composition.compact_geom()
+            composition._shared.props_interner.compact()
+            return self._frame_inputs(composition, width, height, clear_color, channels)
 
     def _until_fits(self, render, check_caps: bool, caps_attr: str = "_caps",
                     exchange: bool = False):
@@ -906,7 +928,8 @@ class Renderer:
             out, diag = render()
             if not check_caps:
                 return out, diag
-            d = diag.cpu().numpy()
+            with tracing.span("wait"):
+                d = diag.cpu().numpy()
             caps = getattr(self, caps_attr)
             xfits = not exchange or d[_pipe.DIAG_XPAIR] <= self._xcap
             if self._fits(d, caps) and xfits:

@@ -1,0 +1,10 @@
+"""stage_srgb_ms: mean device ms a frame in the pipeline stage `srgb`:
+linear to sRGB and the u8 pack.  The program's own stage stamps inside
+the frame graph (`forma_tpu_torch.tracing`), over every frame it
+rendered."""
+
+from frame_bench import program
+
+
+def read(ctx):
+    return program.stage_ms("srgb")
