@@ -1,6 +1,7 @@
-"""The comparison's control: the plain reference put in the program's place,
-its paint stage held in bfloat16 (the configurations state float32), read
-by the same comparison as a run's frames.
+"""The comparison's control: the plain reference (the scene module's own,
+or `reference/`) put in the program's place, its paint stage held in
+bfloat16 (the configurations state float32), read by the same comparison
+as a run's frames.
 
     python -m frame_bench.control --workload <cell> --seeds <n> [<n> ...]
 
@@ -20,9 +21,8 @@ import sys
 from pathlib import Path
 
 from . import check
-from .reference import Reference
 from .reference.paint import round_bf16
-from .scenes import module
+from .scenes import module, paint
 from .traffic import motion
 
 HERE = Path(__file__).resolve().parent
@@ -40,7 +40,7 @@ def reading(bench: dict, workload: str, seed: int, config_overrides=None,
     limits = json.loads((HERE / "checks" / f"{workload}.json").read_text())
     scene = module(config["scene"]).build(config, seed)
     update = motion(mix, scene, config, seed)
-    ref = Reference(scene)
+    ref = paint(config["scene"])[1](scene)
     want = {mix["warmup_frames"] + k for k in frames}
     worst = 0.0
     for i in range(max(want) + 1):

@@ -8,7 +8,8 @@ from the root of a checkout holding `BENCHMARK.json`.  In order:
    library, which it keys by a hash of its sources under `build/`;
 2. generates the cell's scene from the seed (`scenes/<scene>.py`, named by
    the configuration file) and composes it through the program's public
-   API, timed as `compose`;
+   API (the scene module's own `compose`, or `compose.py`'s), timed as
+   `compose`;
 3. warms up: the mix's warm-up frames, which capture the frame graphs and
    grow the buckets;
 4. renders frames back to back for `--seconds` in a closed loop (one
@@ -16,8 +17,9 @@ from the root of a checkout holding `BENCHMARK.json`.  In order:
    host), each frame timed from its scene update to its pixels;
 5. with `--trace 1`, renders a few more frames under `torch.profiler`;
 6. compares a seeded sample of the window's frames with the plain
-   reference (`reference/`), and prints the numbers compared on standard
-   error and, as its last line, the result on standard output.
+   reference (the scene module's own `Reference`, or `reference/`'s), and
+   prints the numbers compared on standard error and, as its last line,
+   the result on standard output.
 
 With `--trace 0` the metrics are the cell's end-to-end metrics; with
 `--trace 1` its per-layer metrics, each read by `metrics/<name>.py`.  A
@@ -88,9 +90,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, trace: bool,
     import torch
 
     from . import check as _check
-    from .compose import compose
-    from .reference import Reference
-    from .scenes import module
+    from .scenes import module, paint
     from .trace import Trace, kernel_names
     from .traffic import Traffic
 
@@ -111,6 +111,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, trace: bool,
 
         _build.lib()  # the kernel library: built once a checkout, loaded after
 
+    compose, Reference = paint(config["scene"])
     scene = module(config["scene"]).build(config, seed)
     t = time.perf_counter()
     comp = compose(scene)

@@ -6,7 +6,7 @@ import json
 import pytest
 
 from frame_bench import run
-from small import ROOT, SEED, bench, cells, small
+from small import ROOT, SEED, bench, cells, small, unsized
 
 KEYS = ("correct", "attempted", "failed", "metrics", "device")
 
@@ -40,6 +40,12 @@ def test_cell_prints_its_line(capsys, workload, trace):
         assert set(last["breakdown"]) == {"device_ops", "idle_gaps"}
     assert err.strip().splitlines()[-1].startswith("check mismatch_pct ")
     assert last["checks"]["mismatch_pct"]["value"] <= last["checks"]["mismatch_pct"]["limit"]
+
+
+def test_every_configuration_has_a_tiny_size():
+    """A configuration's tests run at the size in `small/<configuration>.json`;
+    one without the file has no cell among those above."""
+    assert unsized() == [], f"no tests/small/<configuration>.json for {unsized()}"
 
 
 def test_no_card_no_result(capsys, monkeypatch):

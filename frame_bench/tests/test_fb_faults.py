@@ -8,9 +8,9 @@ import numpy as np
 import pytest
 
 from frame_bench import run, traffic
-from frame_bench.reference import Reference
 from frame_bench.reference.paint import round_bf16
-from small import ROOT, SEED, bench, cells, small
+from frame_bench.scenes import paint
+from small import ROOT, SEED, bench, cells, config, small
 
 MOVING = [c for c in cells() if not c.endswith(".static")]
 
@@ -24,6 +24,7 @@ def put(traffic_, img):
 
 def broken_run(monkeypatch, workload, fault):
     real_render, real_apply = traffic.Traffic.render, traffic.Traffic.apply
+    Reference = paint(config(workload)["scene"])[1]  # the scene's own, or reference/'s
     state = {}
 
     def apply(self, t):

@@ -1,10 +1,18 @@
 """Nothing under frame_bench/ imports JAX, jaxlib, Flax or the JAX package
 (`forma_tpu`), each module's top-level name compared whole (the port,
 `forma_tpu_torch`, begins with `forma_tpu`); and the reference imports
-nothing of the port."""
+nothing of the port: neither `reference/` nor a scene module's own."""
 
 import ast
+import os
+import subprocess
+import sys
+import textwrap
 from pathlib import Path
+
+import pytest
+
+from small import ROOT, cells
 
 BENCH = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "forma_tpu"}
@@ -51,3 +59,24 @@ def test_reference_imports_nothing_of_the_port():
             if isinstance(node, ast.ImportFrom) and node.level:
                 assert node.level == 1, f
 
+
+@pytest.mark.parametrize("workload", cells())
+def test_control_loads_nothing_of_the_program(workload):
+    """The control renders the cell's frames with its scene's reference (its
+    own, or `reference/`) and loads nothing of the port, of the JAX package
+    or of JAX."""
+    names = FORBIDDEN | {"forma_tpu_torch"}
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {str(Path(__file__).resolve().parent)!r})
+        from frame_bench import control
+        from small import SEED, bench, small
+        b = bench()
+        control.reading(b, {workload!r}, SEED, small({workload!r}, b), frames=(0,))
+        print(sorted({{m.split(".")[0] for m in sys.modules}} & {names!r}))
+    """)
+    path = os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")]))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "PYTHONPATH": path})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"

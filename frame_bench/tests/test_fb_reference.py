@@ -1,5 +1,6 @@
 """The frozen reference agrees with the port's CPU render on small seeded
-scenes, and its flattening with the port's; the bfloat16 control does not."""
+scenes, and its flattening with the port's; the bfloat16 control does not; the
+solid-fill scenes are composed and judged by the benchmark's own functions."""
 
 import numpy as np
 import pytest
@@ -8,12 +9,12 @@ from frame_bench.compose import compose
 from frame_bench.reference import Reference
 from frame_bench.reference.flatten import flatten
 from frame_bench.reference.paint import round_bf16
-from frame_bench.scenes import paris30k, spaceship
-from small import SMALL
+from frame_bench.scenes import paint, paris30k, spaceship
+from small import tiny
 
 CFG = {
-    "paris30k": dict(SMALL["paris30k-1080p"], buildings=0.7, roads=0.2, clear=[1, 1, 1, 1]),
-    "spaceship": dict(SMALL["spaceship-1080p"], clear=[0, 0, 0, 1]),
+    "paris30k": dict(tiny("paris30k-1080p"), buildings=0.7, roads=0.2, clear=[1, 1, 1, 1]),
+    "spaceship": dict(tiny("spaceship-1080p"), clear=[0, 0, 0, 1]),
 }
 
 
@@ -50,6 +51,13 @@ def test_reference_matches_port(name, seed):
     low = whole(ref, transforms, round_bf16)
     if name == "paris30k":  # translucent layers over a light ground: most values move
         assert np.count_nonzero(low != want) > 0.05 * d.size
+
+
+@pytest.mark.parametrize("name", ["paris30k", "spaceship"])
+def test_solid_scenes_take_the_defaults(name):
+    """A scene module that defines no `compose` or `Reference` of its own is
+    composed and judged by the benchmark's, object for object."""
+    assert paint(name) == (compose, Reference)
 
 
 def test_flattening_matches_port():
