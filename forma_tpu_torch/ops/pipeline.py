@@ -37,7 +37,10 @@ frame, or one card's piece of it, be captured as a CUDA graph.
 
 `render_frame` and `render_frame_cached` stamp their stage boundaries
 (`tracing.marker`: on a card, nodes of the captured graph), unless
-`plain`; the sharded frames stamp nothing.
+`plain`; the sharded frames stamp nothing.  On the two-key route the
+stamps split the work: `expand` (K1), `emit` (the two-key emit) and
+`key_sort` (the int64 sort and its unpack) in place of `rasterize_sort`,
+and `carry_sort` (`run_data`'s re-sort of the runs) out of `runs`.
 """
 
 from __future__ import annotations
@@ -125,9 +128,10 @@ def _core(
         params, slots, lengths, vline_ends,
         torch.clamp(v_total, max=caps.vline),
         caps.vline, K_SEG, rows, tiles_x, row_lo,
-        slot_bits=slot_bits, expand=expand, plain=plain, taps=taps,
+        slot_bits=slot_bits, expand=expand, plain=plain, taps=taps, stamp=stamp,
     )
-    stamp("rasterize_sort")
+    if slot_bits > 0:  # the two-key route stamped its own stages
+        stamp("rasterize_sort")
     return _back(
         key_hi, key_lo, payload, v_total, total_segs,
         st, clear, rows, tiles_x, caps, features, channels,
@@ -179,7 +183,7 @@ def _back(
             st["clip_n"], st["is_clipped"], st["blend"], st["fill_type"],
             st["color"], st["grad"], st["stops"], st["tex"],
         ),
-        presorted=presorted, plain=plain, taps=taps,
+        presorted=presorted, plain=plain, taps=taps, stamp=stamp,
     )
     stamp("runs")
 

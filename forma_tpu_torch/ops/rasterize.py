@@ -29,14 +29,15 @@ Two key forms, chosen by `slot_bits` (`pipeline.slot_bits_for`):
   `forma_tpu/ops/rasterize.py:334-372`).  The pair sorts as one int64 key
   (`sort_two_key`).  Runs then arrive in (row, tx, layer) order, and the
   runs stage re-sorts them into carry-chain order
-  (`runs.run_data(presorted=False)`).
+  (`runs.run_data(presorted=False)`).  The route stamps its own stages
+  (`tracing`): `expand`, `emit` and `key_sort`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .. import consts
+from .. import consts, tracing
 from ._u32 import MASK32, SENTINEL
 from .expand_kernel import expand_params, expand_params_torch
 from .rasterize_kernel import (
@@ -155,6 +156,7 @@ def rasterize_sort(
     v_cap: int, k_seg: int, rows: int, tiles_x: int,
     row_lo=0, slot_bits: int = 0, expand: str = "fused",
     plain: bool = False, taps=None,
+    stamp=tracing.no_mark,  # the frame's stage stamps (`tracing.marker`)
 ):
     """Returns sorted (key_hi, key_lo, payload) int64 [v_cap * k_seg] of u32
     values.
@@ -162,9 +164,10 @@ def rasterize_sort(
     `slot_bits > 0`: the packed key through `expand`'s path, then
     `sort_segments`.  `slot_bits == 0`: the two-key route, K1 and the
     emit in PyTorch whatever `expand` says (K4 packs only the one-word
-    key), then `sort_two_key`.  Both sorts are unstable.  `plain` runs
-    each kernel's plain PyTorch version on any device; `taps` (a dict)
-    receives each kernel's inputs."""
+    key), then `sort_two_key`, each stamped as its stage (`expand`,
+    `emit`, `key_sort`); the packed key stamps nothing here.  Both sorts
+    are unstable.  `plain` runs each kernel's plain PyTorch version on any
+    device; `taps` (a dict) receives each kernel's inputs."""
     if expand not in EXPAND_PATHS:
         raise ValueError(f"expand must be one of {EXPAND_PATHS}, got {expand!r}")
     if taps is not None:
@@ -172,10 +175,14 @@ def rasterize_sort(
                                   k_seg, rows, tiles_x, row_lo, slot_bits)
     if slot_bits <= 0:
         col, j, v_live = _expand(params, vline_ends, v_total, v_cap, plain, taps)
+        stamp("expand")
         key_hi, key_lo, payload = _emit_two_key(
             col, j, v_live, k_seg, rows, tiles_x, row_lo
         )
-        return sort_two_key(key_hi.reshape(-1), key_lo.reshape(-1), payload.reshape(-1))
+        stamp("emit")
+        out = sort_two_key(key_hi.reshape(-1), key_lo.reshape(-1), payload.reshape(-1))
+        stamp("key_sort")
+        return out
     tx_bits = max((tiles_x + 1).bit_length(), 1)
     packed, payload = _expand_emit_packed(
         params, lengths, vline_ends, v_total,

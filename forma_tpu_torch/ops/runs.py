@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import consts
+from .. import consts, tracing
 
 from ._u32 import MASK32, SENTINEL
 from .grid_kernel import grid_build, grid_build_torch
@@ -66,6 +66,7 @@ def run_data(
     presorted: bool = False,  # segments sorted by the packed [row|slot|tx] key
     plain: bool = False,  # K2's and the scans' plain PyTorch versions on any device
     taps=None,  # dict: receives K2's and the scans' inputs, and the stage's under "run_data"
+    stamp=tracing.no_mark,  # the frame's stage stamps (`tracing.marker`)
 ):
     """Per-run grids and carry chains.  Returns a dict of per-run arrays:
     `run_hi`, `run_layer`, `r_valid`, `real_flags` and `grid` in run order,
@@ -77,7 +78,9 @@ def run_data(
     Otherwise (the two-key sort) the runs sort by the int64 key `key2 <<
     TX_BITS | txb` (`forma_tpu/ops/runs.py:235-249`), invalid runs last
     under `TWO_KEY_SENTINEL`; the valid keys are unique, so the unstable
-    sort gives JAX's permutation on every valid run."""
+    sort gives JAX's permutation on every valid run.  That re-sort is
+    stamped as the stage `carry_sort`, the `runs` stage before it as
+    `runs`; the caller ends `runs` again after this call."""
     dev = key_hi.device
     if taps is not None:
         taps["run_data"] = (key_hi, key_lo, payload, run_id, new_run, num_runs, st_pidx,
@@ -113,6 +116,7 @@ def run_data(
         key2_s, txb_s, rowcov_s = key2, txb_key, rowcov
         inv = r.to(torch.int32)
     else:
+        stamp("runs")
         # key2 < 2^33 and txb < 2^TX_BITS: the pair fits 46 bits.
         key = torch.where(r_valid, (key2 << TX_BITS) | txb,
                           torch.full_like(key2, TWO_KEY_SENTINEL))
@@ -121,6 +125,7 @@ def run_data(
         inv = torch.empty(run_cap, dtype=torch.int32, device=dev)
         inv[orig] = r.to(torch.int32)  # the inverse permutation
         rowcov_s = rowcov[orig]
+        stamp("carry_sort")
 
     new_group = key2_s != _roll1(key2_s)
     new_group[:1].fill_(True)

@@ -39,9 +39,15 @@ device (`accumulator`), allocated once, outside every graph pool, so that
 the graphs keep its address; `stage_ms` reads it, `reset` zeroes it in
 place.  The stages (`STAGES`) are `profiling.Timings`' and, on a
 damage-cached frame, `damage`, the changed tiles' compaction after the
-pack.  On the CPU every op has finished when it returns, so a stamp takes
-the host's clock into the CPU's accumulator, eager or not.  The sharded
-frames and the `plain` frames stamp nothing.
+pack.  A frame on the two-key route (`pipeline.slot_bits_for` gives 0)
+stamps four more in place of `rasterize_sort`: `expand` (K1, or its plain
+version), `emit` (`rasterize._emit_two_key`), `key_sort`
+(`rasterize.sort_two_key` and its unpack) and `carry_sort`
+(`runs.run_data`'s re-sort of the runs into carry-chain order, out of
+`runs`, which that frame ends twice: before the re-sort and after the
+carry chains).  On the CPU every op has finished when it returns, so a
+stamp takes the host's clock into the CPU's accumulator, eager or not.
+The sharded frames and the `plain` frames stamp nothing.
 """
 
 from __future__ import annotations
@@ -56,8 +62,9 @@ from .ops import _build
 
 SPANS = ("inputs", "replay", "capture", "wait", "readback", "write_back", "transforms")
 STAGES = ("line_setup", "rasterize_sort", "runs", "units", "cull", "paint", "srgb",
-          "damage")
+          "damage", "expand", "emit", "key_sort", "carry_sort")
 _N = len(STAGES)
+_RUNS, _CARRY_SORT = STAGES.index("runs"), STAGES.index("carry_sort")
 # An accumulator: ns per stage [_N], stamps per stage [_N], frames, and the
 # previous stamp's time.
 _FRAMES, _PREV = 2 * _N, 2 * _N + 1
@@ -145,7 +152,9 @@ def stage_ms(device) -> dict:
     if acc is None:
         return {}
     v = acc.tolist()
-    return {s: v[i] / v[_N + i] / 1e6 for i, s in enumerate(STAGES) if v[_N + i]}
+    stamps = v[_N:2 * _N]
+    stamps[_RUNS] -= stamps[_CARRY_SORT]  # a two-key frame ends `runs` twice
+    return {s: v[i] / stamps[i] / 1e6 for i, s in enumerate(STAGES) if stamps[i]}
 
 
 def reset(device) -> None:

@@ -11,6 +11,10 @@ benchmark's readers of it (`frame_bench/program.py`):
   `profiling.Timings` (and `damage` on cached frames), each >= 0, and N
   frames; a no-dispatch cached frame, a `plain` frame and a sharded frame
   add none; `reset` zeroes the accumulator;
+- a frame forced onto the two-key route stamps `expand`, `emit`,
+  `key_sort` and `carry_sort` once and nothing under `rasterize_sort`, a
+  packed frame none of the four, and on both routes the stages' ms sum to
+  the frame's stamped span;
 - `Renderer.readback_bytes` counts every pixel readback;
 - the span and stage readers on a synthetic trace: self time, clipping
   to the traced window, and None where the program records nothing;
@@ -30,6 +34,7 @@ from torch.profiler import ProfilerActivity, profile
 import forma_tpu_torch as pt
 from forma_tpu_torch import Renderer, Timings, tracing
 from forma_tpu_torch.demos import scenes
+from forma_tpu_torch.ops import pipeline
 from frame_bench import program, run
 from frame_bench.scenes import Scene
 from frame_bench.trace import Trace
@@ -39,6 +44,8 @@ from torch_fixtures import cpu_graphs, no_reads, one_torch_thread  # noqa: F401 
 W = H = 64
 CLEAR = pt.Color(1.0, 1.0, 1.0, 1.0)
 UNCACHED = list(Timings._fields[:7])
+CACHED = UNCACHED + ["damage"]
+TWO_KEY = ["expand", "emit", "key_sort", "carry_sort"]
 
 
 SHIFT = [1.0, 0.0, 0.0, 1.0, 1.0, 0.0]
@@ -169,10 +176,52 @@ def test_stage_stamps_count_frames():
         _move(comp, i)
         r.render_into(comp, buf, CLEAR)
     ms = tracing.stage_ms("cpu")
-    assert list(ms) == list(tracing.STAGES) and min(ms.values()) >= 0.0
+    assert list(ms) == CACHED == list(tracing.STAGES[:8]) and min(ms.values()) >= 0.0
     assert tracing.frames("cpu") == n
     r.render_into(comp, buf, CLEAR)  # unchanged: no dispatch
     assert tracing.frames("cpu") == n
+
+
+@pytest.mark.parametrize("route", ["packed", "two_key"])
+def test_two_key_route_stamps_its_stages(route, monkeypatch):
+    """On a host clock that advances by a different step at each read: a
+    two-key frame (`slot_bits_for` giving 0, as `test_torch_widekey.py`
+    forces it) stamps the route's four stages once, `rasterize_sort`
+    never, and ends `runs` twice, around `carry_sort`, which `stage_ms`
+    counts as one frame; a packed frame stamps none of the four.  The
+    stages' mean ms sum to the frames' span from first stamp to last."""
+    if route == "two_key":
+        monkeypatch.setattr(pipeline, "slot_bits_for", lambda *_: 0)
+    comp = _scene()
+    r = Renderer("cpu")
+    r.render(comp, W, H, CLEAR)  # settles the buckets
+    reads = []
+
+    def clock():
+        reads.append(1000 * len(reads) ** 2)
+        return reads[-1]
+
+    monkeypatch.setattr(tracing, "time", SimpleNamespace(perf_counter_ns=clock))
+    tracing.reset("cpu")
+    n = 3
+    for _ in range(n):
+        r.render(comp, W, H, CLEAR)
+    assert tracing.frames("cpu") == n and len(reads) % n == 0
+    acc = tracing.accumulator("cpu")
+    stamps = dict(zip(tracing.STAGES, acc[len(tracing.STAGES):2 * len(tracing.STAGES)].tolist()))
+    ms = tracing.stage_ms("cpu")
+    if route == "two_key":
+        assert [stamps[s] for s in TWO_KEY] == [n] * 4
+        assert stamps["rasterize_sort"] == 0 and stamps["runs"] == 2 * n
+        assert list(ms) == [s for s in UNCACHED if s != "rasterize_sort"] + TWO_KEY
+    else:
+        assert [stamps[s] for s in TWO_KEY] == [0] * 4 and stamps["runs"] == n
+        assert list(ms) == UNCACHED
+    per = len(reads) // n  # stamps a frame
+    span = sum(reads[f * per + per - 1] - reads[f * per] for f in range(n))
+    assert sum(ms.values()) * 1e6 * n == pytest.approx(span, rel=1e-12)
+    for stage in TWO_KEY:  # the benchmark's readers of the route's stages
+        assert run.load_metric(f"stage_{stage}_ms").read(None) == ms.get(stage, 0.0)
 
 
 def test_stamps_read_nothing_back(no_reads):  # noqa: F811 (the fixture)
