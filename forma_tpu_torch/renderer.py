@@ -26,8 +26,12 @@ Compiled frames: on a CUDA device, `render_device` (and so `render`,
 (synchronous and pipelined) replay one CUDA graph per static key
 (`graphs.FrameGraphs`, the counterpart of the JAX package's jitted frame
 programs), captured the first time a key is seen; a capture that fails
-raises.  `plain=True` and `taps=` run the frame eagerly, op by op: they
-are the instruments the checks use, not a fallback.  A CPU renderer
+raises.  The frame `render` returns (and the pixels `render_into` writes
+from) is copied into one of two pinned host buffers the renderer reuses
+(`_HostFrames`): the array is the caller's, and a buffer is written again
+only once no array over it is alive; a caller holding both gets a fresh
+pageable array.  `plain=True` and `taps=` run the frame eagerly, op by
+op: they are the instruments the checks use, not a fallback.  A CPU renderer
 captures nothing.  So do the multi-device frames: one graph of the whole
 frame where every shard sits on the renderer's card, else one graph a
 card of its piece (two for the line-sharded frame, the exchange between
@@ -40,11 +44,14 @@ re-upload when paths change; per-frame host work is O(#geometries +
 Tracing: while a `torch.profiler` session records, the host phases of a
 frame are `tracing` spans (`forma.inputs`, `replay`, `capture`, `wait`,
 `readback`, `write_back`), and `readback_bytes` counts every byte of
-pixels read back.
+pixels read back.  Of the pixel reads from a CUDA device,
+`readback_recycled` counts those into a pinned buffer the renderer already
+had and `readback_fallbacks` those into a fresh pageable array.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -94,6 +101,63 @@ def _shard_rows(height: int, n: int) -> int:
     """A shard's tile rows: the frame's, padded up to a multiple of n."""
     rows_total = -(-height // consts.TILE_HEIGHT)
     return -(-rows_total // n)
+
+
+class _Lease:
+    """The base of an array `_HostFrames` hands out: numpy keeps it alive
+    as long as the array or any view of it is, so a weak reference to it
+    dies with the last of them."""
+
+    __slots__ = ("__array_interface__", "_view", "__weakref__")
+
+    def __init__(self, view: np.ndarray):
+        self._view = view  # keeps the host buffer's storage alive
+        self.__array_interface__ = view.__array_interface__
+
+
+class _HostFrames:
+    """Whole-frame reads into at most `n` host buffers, reused across
+    frames and page-locked for a CUDA tensor's reads: the device's copy into
+    one is a single DMA, where a fresh pageable array costs the driver a
+    staged copy and the host a page fault per page.  A read takes a buffer
+    only once no array handed out from it is alive (`_Lease`), the smallest
+    free one it fits; it allocates one of its own size while fewer than `n`
+    exist, or in place of a free one that is too small.  With every buffer
+    held by the caller it falls back to a fresh pageable array
+    (`fallbacks`).  `recycled` counts reads into a buffer that existed,
+    `made` the buffers allocated; with `fallbacks` they add up to the reads."""
+
+    n = 2  # a closed loop holds frame i - 1 while frame i reads
+
+    def __init__(self):
+        self._bufs = []  # [flat u8 host tensor, weakref to its last _Lease]
+        self.recycled = self.made = self.fallbacks = 0
+
+    def read(self, pixels: torch.Tensor) -> np.ndarray:
+        """`pixels` copied to the host (synchronously) as an array of the
+        caller's, which no later read writes into while it is alive."""
+        nbytes = pixels.numel() * pixels.element_size()
+        free = [s for s in self._bufs if s[1] is None or s[1]() is None]
+        fits = [s for s in free if s[0].numel() >= nbytes]
+        if fits:
+            slot = min(fits, key=lambda s: s[0].numel())
+            self.recycled += 1
+        else:
+            if len(self._bufs) < self.n:
+                slot = [None, None]
+                self._bufs.append(slot)
+            elif free:
+                slot = free[0]
+            else:
+                self.fallbacks += 1
+                return pixels.cpu().numpy()
+            slot[0] = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pixels.is_cuda)
+            self.made += 1
+        dst = slot[0][:nbytes].view(pixels.dtype).view(pixels.shape)
+        dst.copy_(pixels)
+        lease = _Lease(dst.numpy())
+        slot[1] = weakref.ref(lease)
+        return np.asarray(lease)
 
 
 class Renderer:
@@ -155,6 +219,9 @@ class Renderer:
         # Bytes read back to the host: every frame's pixels, and the
         # damage-cached frame's diagnostics and damaged-tile indices.
         self.readback_bytes = 0
+        # A CUDA renderer's pixel reads land in recycled pinned buffers
+        # (`readback_recycled`, `readback_fallbacks`).
+        self._host_frames = _HostFrames()
         self._pending = None  # in-flight pipelined frame (ticket, buffer, ...)
         # The frame graphs, one per static key; only a CUDA renderer captures.
         # A sharded frame's pieces on other cards keep theirs in `_card_graphs`.
@@ -479,11 +546,25 @@ class Renderer:
         return self._read(frame[:height, :width])
 
     def _read(self, pixels: torch.Tensor) -> np.ndarray:
-        """`pixels` on the host, counted in `readback_bytes`."""
+        """`pixels` on the host, counted in `readback_bytes`: from a CUDA
+        device into one of `_HostFrames`' recycled pinned buffers, or a
+        fresh array where the caller still holds every one; from the CPU
+        the tensor's own memory."""
         with tracing.span("readback"):
-            img = pixels.cpu().numpy()
+            img = self._host_frames.read(pixels) if pixels.is_cuda else pixels.cpu().numpy()
         self.readback_bytes += img.nbytes
         return img
+
+    @property
+    def readback_recycled(self) -> int:
+        """Pixel reads served from a pinned buffer the renderer already had."""
+        return self._host_frames.recycled
+
+    @property
+    def readback_fallbacks(self) -> int:
+        """Pixel reads from a CUDA device into a fresh pageable array,
+        because the caller held every pinned buffer."""
+        return self._host_frames.fallbacks
 
     def render_into(
         self,
