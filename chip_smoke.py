@@ -10,11 +10,10 @@ failure exits non-zero:
 1. device record: card name and power limit, CUDA, nvcc, triton;
 2. build of the CUDA kernels from `forma_tpu_torch/csrc` (one nvcc process
    per source, all at once), timed;
-3. paris-30k at 1920x1080: one frame through `Renderer.render_device` on
-   each expand path records the inputs of K4, K2 and K3 (`expand="fused"`)
-   and of K1 (`expand="split"`); each kernel then runs on them against its
-   plain PyTorch version (bit-equal required), with times by CUDA events
-   (`ms`: median of 5 batches of 10 calls queued back to back; `ms_sync`:
+3. paris-30k at 1920x1080: one frame through `Renderer.render_device`
+   records the inputs of K4, K2 and K3; each kernel then runs on them
+   against its plain PyTorch version (bit-equal required), with times by
+   CUDA events (`ms`: median of 5 batches of 10 calls queued back to back; `ms_sync`:
    median of 20 calls, each synchronised alone, which also counts the
    wrapper's host work when it exceeds the queue's slack), the wrapper's
    host microseconds per call, the plain version's time (median of 3
@@ -45,8 +44,7 @@ failure exits non-zero:
    through `Renderer.render` on the card, against the same composition
    rendered by the port on the CPU, every kernel's plain version (max
    channel diff <= 1), then timed over 5 more frames;
-5. paris-30k through `Renderer.render` on each path, the default
-   `expand="fused"` and `expand="split"`: launch counters reset, one
+5. paris-30k through `Renderer.render`: launch counters reset, one
    warm-up and 5 timed frames, counters read (each kernel of the path must
    have launched); then the same frame through every kernel's plain
    version on the card (max channel diff <= 1);
@@ -231,9 +229,9 @@ failure exits non-zero:
    renderer's;
 21. the compiled frame (`forma_tpu_torch/graphs.py`: on the card a frame
    replays its key's CUDA graph), graph against eager, each configuration
-   beside the phase whose scene it reuses: paris-30k at 1920x1080 on both
-   expand paths (after phase 5), paris-30k-styled and -textured (6, 8),
-   the styled and textured mixes (7, 9), paris-30k at 7680x4320 and the
+   beside the phase whose scene it reuses: paris-30k at 1920x1080 (after
+   phase 5), paris-30k-styled and -textured (6, 8), the styled and
+   textured mixes (7, 9), paris-30k at 7680x4320 and the
    140,000-layer lattice on the two-key route (10), phase 15's crop and
    two more rectangles of its 30 tile rows on one renderer (one capture
    for the three), both sharded frames of phase 19 (4 shards on the one
@@ -276,9 +274,9 @@ sharded frames as per-card graphs, one shard on each card.
 
     python3 chip_smoke.py --graph-check
 
-runs only a quick subset of phase 21 (paris-30k at 1920x1080 on both
-paths and its three crops, the mixes, the styled mix forced two-key, the
-spaceship and the 1080p animation) and its summary.
+runs only a quick subset of phase 21 (paris-30k at 1920x1080 and its
+three crops, the mixes, the styled mix forced two-key, the spaceship and
+the 1080p animation) and its summary.
 
     python3 chip_smoke.py --scan-check
 
@@ -342,9 +340,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 K3 = "forma_tpu/ops/paint_pallas.py:468"
 KERNELS = (
     # name (= launch counter), source, TPU kernel it replaces, the run whose
-    # launches count for it (an expand path of paris-30k, the styled or
-    # textured frame, the styled mix, the two-key paris-30k at 7680x4320, or
-    # the probe's entry point), the key of its numbers, the frame they
+    # launches count for it (paris-30k, the styled or textured frame, the
+    # styled mix, the two-key paris-30k at 7680x4320, or the probe's entry
+    # point), the key of its numbers, the frame they
     # were measured on
     ("expand", "forma_tpu_torch/csrc/expand.cu",
      "forma_tpu/ops/expand_pallas.py:175", "wide", "expand_wide",
@@ -409,7 +407,6 @@ KERNELS = (
 )
 PATHS = {
     "fused": ("rasterize", "grid", "fold"),
-    "split": ("expand", "grid", "fold"),
     "styled": ("rasterize", "grid", "fold_styled"),
     "mix": ("rasterize", "grid", "fold_clip"),
     "textured": ("rasterize", "grid", "fold_tex"),
@@ -826,15 +823,13 @@ def check_kernel(name: str, kern, plain, args, graph: bool = False, **label) -> 
 
 
 def check_kernels(taps) -> dict:
-    """Phase 3: every kernel against its plain version on the frame's own
-    inputs; returns {name: dict of the kernels line's numbers}."""
-    from forma_tpu_torch.ops import expand_kernel as ek
+    """Phase 3: K4, K2 and K3 against their plain versions on the frame's
+    own inputs; returns {name: dict of the kernels line's numbers}."""
     from forma_tpu_torch.ops import fold_kernel as fk
     from forma_tpu_torch.ops import grid_kernel as gk
     from forma_tpu_torch.ops import rasterize_kernel as rk
 
     pairs = {
-        "expand": (ek.expand_params, ek.expand_params_torch),
         "rasterize": (rk.rasterize_blocks, rk.rasterize_blocks_torch),
         "grid": (gk.grid_build, gk.grid_build_torch),
         "fold": (fk.paint_fold, fk.paint_fold_torch),
@@ -3211,10 +3206,10 @@ def graph_summary() -> None:
 
 
 def graph_check(card: str) -> int:
-    """`--graph-check`: phase 21's quick subset (paris-30k at 1920x1080 on
-    both expand paths and its crops, the mixes, the styled mix forced
-    two-key, the spaceship and the 1080p animation, graph against eager),
-    then its summary and the card's line."""
+    """`--graph-check`: phase 21's quick subset (paris-30k at 1920x1080
+    and its crops, the mixes, the styled mix forced two-key, the spaceship
+    and the 1080p animation, graph against eager), then its summary and
+    the card's line."""
     from forma_tpu_torch import Composition, Renderer
     from forma_tpu_torch.demos import scenes
     from forma_tpu_torch.ops import _build, pipeline
@@ -3225,9 +3220,8 @@ def graph_check(card: str) -> int:
     device = torch.device("cuda", 0)
     paris = Composition()
     scenes.paris30k(paris, PARIS_W, PARIS_H)
-    for path in ("fused", "split"):
-        graph_frame(f"paris-30k 1920x1080 {path}", Renderer(device, expand=path), paris,
-                    (PARIS_W, PARIS_H), PATHS[path])
+    graph_frame("paris-30k 1920x1080", Renderer(device), paris, (PARIS_W, PARIS_H),
+                PATHS["fused"])
     graph_crops("paris-30k", device, paris, PATHS["fused"])
     mixes = {"mix": lambda c: scenes.styled_mix(c, 400, MIX_W, MIX_H),
              "texmix": lambda c: scenes.textured_mix(c, 300, MIX_W, MIX_H)}
@@ -3281,9 +3275,9 @@ def main() -> int:
                     help="run only phase 19 (e), the sharded frames with one shard on "
                          "each card (needs two cards or more)")
     ap.add_argument("--graph-check", action="store_true",
-                    help="run only phase 21's quick subset: paris-30k at 1920x1080 on "
-                         "both paths, its crops, the mixes, the spaceship and the "
-                         "1080p animation, graph against eager")
+                    help="run only phase 21's quick subset: paris-30k at 1920x1080, "
+                         "its crops, the mixes, the spaceship and the 1080p animation, "
+                         "graph against eager")
     ap.add_argument("--scan-check", action="store_true",
                     help="run only phase 3's scan check on paris-30k at 1920x1080, then "
                          "what --graph-check runs")
@@ -3348,46 +3342,40 @@ def main() -> int:
     if opts.scan_check:
         return scan_check(card)
 
-    # 3. paris-30k: record kernel inputs from one real frame per path
+    # 3. paris-30k: record kernel inputs from one real frame
     t = time.perf_counter()
     paris = Composition()
     scenes.paris30k(paris, PARIS_W, PARIS_H)
     say("paris", scene_build_s=f"{time.perf_counter() - t:.1f}", layers=len(paris.layers))
     device = torch.device("cuda", 0)
     clear = Color(1.0, 1.0, 1.0, 1.0)
-    # The default Renderer is the main path (expand="fused").
-    renderers = {"fused": Renderer(device), "split": Renderer(device, expand="split")}
-    taps = {path: {} for path in PATHS}
-    for path, r in renderers.items():
-        t = time.perf_counter()
-        r.render_device(paris, PARIS_W, PARIS_H, clear, taps=taps[path])
-        torch.cuda.synchronize()
-        say("paris", expand=path, first_frame_s=f"{time.perf_counter() - t:.2f}",
-            caps=tuple(r._caps), regrows=r.regrow_count)
-    fold_depths("paris", taps["fused"]["fold"])
-    kres = check_kernels({**taps["fused"], "expand": taps["split"]["expand"]})
-    kres["scan"] = check_scans(taps["fused"]["scan"])
+    r = Renderer(device)
+    taps = {}
+    t = time.perf_counter()
+    r.render_device(paris, PARIS_W, PARIS_H, clear, taps=taps)
+    torch.cuda.synchronize()
+    say("paris", first_frame_s=f"{time.perf_counter() - t:.2f}", caps=tuple(r._caps),
+        regrows=r.regrow_count)
+    fold_depths("paris", taps["fold"])
+    kres = check_kernels(taps)
+    kres["scan"] = check_scans(taps["scan"])
     k4_edges(device)
-    sort_layouts("paris", taps["fused"]["rasterize"])
-    rid, _, area, cover = taps["fused"]["grid"][:4]
+    sort_layouts("paris", taps["rasterize"])
+    rid, _, area, cover = taps["grid"][:4]
     k2_slots, k2_live = rid.numel(), int(((area != 0) | (cover != 0)).sum())
     del taps, rid, area, cover
 
     # 4. circles on the card vs the port on the CPU
     circles_vs_cpu(device)
 
-    # 5. paris-30k through the main path, each expand path
-    r = renderers["fused"]
+    # 5. paris-30k through the main path
     ref, _ = r.render_device(paris, PARIS_W, PARIS_H, clear, plain=True)
     ref = ref[:PARIS_H, :PARIS_W].cpu().numpy()
-    launches = {
-        path: frame_path("paris", path, rr, paris, (PARIS_W, PARIS_H), ref)
-        for path, rr in renderers.items()
-    }
-    for path, rr in renderers.items():  # 21. the compiled frame, each path
-        graph_frame(f"paris-30k 1920x1080 {path}", rr, paris, (PARIS_W, PARIS_H), PATHS[path])
+    launches = {"fused": frame_path("paris", "fused", r, paris, (PARIS_W, PARIS_H), ref)}
+    # 21. the compiled frame
+    graph_frame("paris-30k 1920x1080", r, paris, (PARIS_W, PARIS_H), PATHS["fused"])
     direct = r.render(paris, PARIS_W, PARIS_H, clear)  # phase 18's reference
-    del renderers, ref
+    del r, ref
 
     # 19. the multi-device frames, run here while paris is as phase 5 composed
     # it (phases 15 and 17 move its layers)

@@ -22,11 +22,11 @@ each other.
 Device rule: `Renderer()` renders on the CUDA card and raises when there
 is none; only an explicit `Renderer("cpu")` runs on the CPU.  Tensors on a
 CUDA device run the kernels; tensors on the CPU run each kernel's plain
-PyTorch version.  `Renderer(expand="fused")` (the default) rasterizes
-through the fused expand + emit kernel, `expand="split"` through the
-expand kernel and the PyTorch emit.  `Renderer.profile_frame` times one
-frame stage by stage (`Timings`); `tracing` holds the port's own spans
-and the stage stamps inside its frame graphs.
+PyTorch version.  A frame rasterizes through the fused expand + emit
+kernel (K4), or, where its sort key does not pack into one word, through
+the expand kernel (K1) and the two-key emit.  `Renderer.profile_frame`
+times one frame stage by stage (`Timings`); `tracing` holds the port's
+own spans and the stage stamps inside its frame graphs.
 
 Also: `demos.svg` (the SVG front end), `backend_numpy` (the plain numpy
 oracle) and the demo CLI, `python -m forma_tpu_torch.demos.main`.

@@ -18,8 +18,8 @@ replays each card's graph of its piece (`pipeline.row_shards`, or
 replays).
 
 The key is the entry point, the device, every argument that is not a
-tensor (width, height, rows, tiles_x, caps, features, channels, expand:
-JAX's statics; a sharded frame's mesh, by its devices, and `xcap`; a
+tensor (width, height, rows, tiles_x, caps, features, channels: JAX's
+statics; a sharded frame's mesh, by its devices, and `xcap`; a
 card's piece, its shards), the arguments' structure (so a crop given and
 one not given key apart, as JAX's pytree does) and every input tensor's
 shape, dtype and device; the style-table dict's tensors are inputs like

@@ -6,7 +6,8 @@
   rasterize_kernel
                  K4: K1 fused with the ff64 emit of packed segment keys
                  and payloads (csrc/rasterize.cu); the emit's plain version
-  rasterize      the "fused" (K4) or "split" (K1 + emit) path, one torch.sort
+  rasterize      the packed route (K4) or the two-key route (K1 + emit),
+                 then one torch.sort
   grid_kernel    K2: per-run area|cover grids and run keys (csrc/grid.cu)
   scan           the prefix scans (max, sum; segmented, reversed) of runs
                  and paint (csrc/scan.cu)

@@ -24,7 +24,7 @@ traces them: K4 and K3 read `row_lo` in device memory, the crop masks
 compare elementwise and `cache_ok` masks the unchanged tiles, so one CUDA
 graph of a frame (`forma_tpu_torch.graphs`) serves every row span, crop
 rectangle and cache state.  The statics (sizes, caps, features,
-channels, expand, and whether a crop is given) are Python values.
+channels, and whether a crop is given) are Python values.
 
 `render_frame_sharded` and `render_frame_sharded_lines` are the two
 multi-device frames over a `mesh.Mesh` (`forma_tpu/ops/pipeline.py:
@@ -110,7 +110,7 @@ def _core(
     width: int, height: int, rows: int, tiles_x: int,
     caps: Caps, features: Features, channels,
     row_lo=0, cache=None, crop_x=None, crop_y=None,
-    expand: str = "fused", plain: bool = False, taps=None,
+    plain: bool = False, taps=None,
     stamps: bool = False,  # stamp the stage boundaries (`tracing.marker`)
 ):
     stamp = tracing.marker(px.device, stamps)
@@ -128,7 +128,7 @@ def _core(
         params, slots, lengths, vline_ends,
         torch.clamp(v_total, max=caps.vline),
         caps.vline, K_SEG, rows, tiles_x, row_lo,
-        slot_bits=slot_bits, expand=expand, plain=plain, taps=taps, stamp=stamp,
+        slot_bits=slot_bits, plain=plain, taps=taps, stamp=stamp,
     )
     if slot_bits > 0:  # the two-key route stamped its own stages
         stamp("rasterize_sort")
@@ -328,7 +328,6 @@ def render_frame(
     caps: Caps, features: Features, channels,
     row_lo=0,  # first tile row to render (a row-span crop): int or int32 0-d tensor
     crop_x=None,  # (tile_x_lo, tile_x_hi): tile columns to paint, ints or 0-d tensors
-    expand: str = "fused",  # "fused" (K4) or "split" (K1 + PyTorch emit)
     plain: bool = False,  # run every kernel's plain PyTorch version
     taps=None,  # dict: receives each kernel's input tuple when given
 ):
@@ -338,7 +337,7 @@ def render_frame(
     return _core(
         px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
         width, height, rows, tiles_x, caps, features, channels,
-        row_lo=row_lo, crop_x=crop_x, expand=expand, plain=plain, taps=taps,
+        row_lo=row_lo, crop_x=crop_x, plain=plain, taps=taps,
         stamps=not plain,
     )
 
@@ -351,7 +350,7 @@ def render_frame_cached(
     caps: Caps, features: Features, channels,
     crop_x=None,  # (tile_x_lo, tile_x_hi): paint crop, default full; ints or 0-d tensors
     crop_y=None,  # (tile_row_lo, tile_row_hi): paint crop, default full; the same
-    expand: str = "fused", plain: bool = False, taps=None,
+    plain: bool = False, taps=None,
 ):
     """Damage-aware render: unchanged tiles re-emit `prev_frame` pixels and
     add nothing to the fold depth; with a crop, out-of-crop tiles re-emit
@@ -366,7 +365,7 @@ def render_frame_cached(
         px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
         width, height, rows, tiles_x, caps, features, channels,
         cache=(prev_frame, prev_counts, st_unchanged, cache_ok),
-        crop_x=crop_x, crop_y=crop_y, expand=expand, plain=plain, taps=taps,
+        crop_x=crop_x, crop_y=crop_y, plain=plain, taps=taps,
         stamps=not plain,
     )
 
@@ -391,7 +390,7 @@ def row_shards(
     px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
     width: int, height: int, rows: int, tiles_x: int,
     caps: Caps, features: Features, channels,
-    shards: tuple, expand: str = "fused", plain: bool = False, taps=None,
+    shards: tuple, plain: bool = False, taps=None,
 ):
     """Row shards `shards` of `render_frame_sharded`, all on the inputs'
     device: shard i runs the whole `_core` on tile rows [i * rows, (i + 1)
@@ -400,7 +399,7 @@ def row_shards(
         _core(
             px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
             width, height, rows, tiles_x, caps, features, channels,
-            row_lo=i * rows, expand=expand, plain=plain, taps=_shard_taps(taps, i),
+            row_lo=i * rows, plain=plain, taps=_shard_taps(taps, i),
         )
         for i in shards
     )
@@ -410,7 +409,7 @@ def render_frame_sharded(
     px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear,
     width: int, height: int, rows: int, tiles_x: int,
     caps: Caps, features: Features, channels, mesh,
-    expand: str = "fused", plain: bool = False, taps=None, run=None,
+    plain: bool = False, taps=None, run=None,
 ):
     """Framebuffer-sharded render over `mesh` (`forma_tpu/ops/pipeline.py:
     377-417`): every input replicates to every shard's device, and shard i
@@ -432,7 +431,7 @@ def render_frame_sharded(
         mesh, run or mesh.run, row_shards,
         lambda _: (px, py, line_slot, g_slot, g_valid, g_t, g_has_t, st, clear),
         dict(width=width, height=height, rows=rows, tiles_x=tiles_x, caps=caps,
-             features=features, channels=channels, expand=expand, plain=plain, taps=taps),
+             features=features, channels=channels, plain=plain, taps=taps),
     )
     return tuple(f for f, _ in out), mesh.pmax([d for _, d in out])
 
@@ -465,16 +464,16 @@ def line_front(
     p0x, p0y, p1x, p1y, line_slot, g_slot, g_valid, g_t, g_has_t,
     width: int, height: int, rows: int, tiles_x: int, caps: Caps,
     n: int, xcap: int, slot_bits: int,
-    shards: tuple, expand: str = "fused", plain: bool = False, taps=None,
+    shards: tuple, plain: bool = False, taps=None,
 ):
     """The front half of line shards `shards` of
     `render_frame_sharded_lines`, all on the inputs' device: shard i takes
-    the i-th n-th of the pair arrays, runs line setup on them and the
-    packed emit at the frame's global tile rows (`rows * n` rows from row
-    0), sorts locally and cuts the sorted stream into one block of `xcap`
-    slots per destination (`_exchange_blocks`).  Returns one (keys,
-    payloads int32 [n, xcap], its vline total, its segments, the largest
-    block's segment count) a shard."""
+    the i-th n-th of the pair arrays, runs line setup on them and K4 at
+    the frame's global tile rows (`rows * n` rows from row 0), sorts
+    locally and cuts the sorted stream into one block of `xcap` slots per
+    destination (`_exchange_blocks`).  Returns one (keys, payloads int32
+    [n, xcap], its vline total, its segments, the largest block's segment
+    count) a shard."""
     tx_bits = max((tiles_x + 1).bit_length(), 1)
     own = [t.reshape(n, -1) for t in (p0x, p0y, p1x, p1y, line_slot)]
     out = []
@@ -485,9 +484,9 @@ def line_front(
         )
         v_total = vline_ends[-1]
         packed, payload = _raster._expand_emit_packed(
-            params, lengths, vline_ends, torch.clamp(v_total, max=caps.vline),
+            params, vline_ends, torch.clamp(v_total, max=caps.vline),
             caps.vline, K_SEG, rows * n, tiles_x, 0, slot_bits, tx_bits,
-            expand=expand, plain=plain, taps=_shard_taps(taps, i),
+            plain=plain, taps=_shard_taps(taps, i),
         )
         # Ascending keys are ascending global rows: grouped by destination.
         packed, order = torch.sort(packed, stable=False)
@@ -533,7 +532,7 @@ def render_frame_sharded_lines(
     width: int, height: int, rows: int, tiles_x: int,
     caps: Caps, features: Features, channels, mesh,
     xcap: int,  # per-(source, destination) exchange block capacity, a multiple of 128
-    expand: str = "fused", plain: bool = False, taps=None, run=None,
+    plain: bool = False, taps=None, run=None,
 ):
     """Line-sharded render over `mesh` (`forma_tpu/ops/pipeline.py:
     420-566`): the lines shard as well as the frame, so line setup, the
@@ -569,7 +568,7 @@ def render_frame_sharded_lines(
         mesh, run, line_front,
         lambda _: (p0x, p0y, p1x, p1y, line_slot, g_slot, g_valid, g_t, g_has_t),
         dict(width=width, height=height, rows=rows, tiles_x=tiles_x, caps=caps, n=n,
-             xcap=xcap, slot_bits=slot_bits, expand=expand, plain=plain, taps=taps),
+             xcap=xcap, slot_bits=slot_bits, plain=plain, taps=taps),
     )
     recv_k = mesh.all_to_all([f[0] for f in fronts])
     recv_p = mesh.all_to_all([f[1] for f in fronts])

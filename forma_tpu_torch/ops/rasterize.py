@@ -8,23 +8,20 @@ Counterpart of `forma_tpu/ops/rasterize.py:64-96,188-392`:
    (`rasterize_kernel.py`).
 2. The segments sort by key, their payloads gathered along.
 
-Two key forms, chosen by `slot_bits` (`pipeline.slot_bits_for`):
+Two routes, chosen by `slot_bits` (`pipeline.slot_bits_for`):
 
-- Packed (`slot_bits > 0`): one [row | slot | tx] key of at most 31 bits.
-  Two paths compute the same segments: `expand="fused"` runs K4
-  (`rasterize_kernel.rasterize_blocks`), `expand="split"` runs K1
-  (`expand_kernel.expand_params`) and the emit in PyTorch; the JAX package
-  picks between them with `FORMA_EXPAND`, the port takes the caller's
-  argument.  One unstable sort orders the key with its payload, both the
-  TPU kernel's 32-bit words in int32 tensors; invalid slots carry the
-  sentinel 0x7FFFFFFF and sort last.  The sorted words then widen to the
-  int64 (key_hi, key_lo, payload) of u32 values that the runs stage takes
+- Packed (`slot_bits > 0`): one [row | slot | tx] key of at most 31 bits,
+  expanded and emitted by K4 (`rasterize_kernel.rasterize_blocks`).  One
+  unstable sort orders the key with its payload, both the TPU kernel's
+  32-bit words in int32 tensors; invalid slots carry the sentinel
+  0x7FFFFFFF and sort last.  The sorted words then widen to the int64
+  (key_hi, key_lo, payload) of u32 values that the runs stage takes
   (`_u32.py`), the u32 sentinel in key_hi.
 - Two keys (`slot_bits == 0`, layer slots too wide to pack): key_hi =
   (row + 1) << TX_BITS | (tx + 1) and key_lo = the layer slot
   (`_emit_two_key`).  K4 packs only the one-word key (as the JAX package's
   fused branch, `forma_tpu/ops/rasterize.py:311`), so a two-key frame
-  always takes K1 and the emit in PyTorch, whatever `expand` says: the
+  takes K1 (`expand_kernel.expand_params`) and the emit in PyTorch: the
   JAX package's own route on its chip (backend "pallas",
   `forma_tpu/ops/rasterize.py:334-372`).  The pair sorts as one int64 key
   (`sort_two_key`).  Runs then arrive in (row, tx, layer) order, and the
@@ -41,12 +38,10 @@ from .. import consts, tracing
 from ._u32 import MASK32, SENTINEL
 from .expand_kernel import expand_params, expand_params_torch
 from .rasterize_kernel import (
-    PACKED_SENTINEL, _emit_core, _emit_packed, rasterize_blocks,
-    rasterize_blocks_torch,
+    PACKED_SENTINEL, _emit_core, rasterize_blocks, rasterize_blocks_torch,
 )
 
 TX_BITS = 13  # tile_x + 1 in the canonical key_hi (max 4096 tiles of 16)
-EXPAND_PATHS = ("fused", "split")
 # The two-key sort's combined int64 key is key_hi << SLOT_FIELD_BITS |
 # key_lo: a valid key_hi is below 2^25 ((2049 << 13) | 4097 at the
 # format's limits) and a slot below 2^21, so it fits 46 bits, and the
@@ -69,26 +64,17 @@ def _expand(params, vline_ends, v_total, v_cap: int, plain: bool, taps):
 
 
 def _expand_emit_packed(
-    params, lengths, vline_ends, v_total,
-    v_cap: int, k_seg: int, rows: int, tiles_x: int, row_lo,
-    slot_bits: int, tx_bits: int, expand: str = "fused", plain: bool = False,
-    taps=None,
+    params, vline_ends, v_total, v_cap: int, k_seg: int, rows: int, tiles_x: int,
+    row_lo, slot_bits: int, tx_bits: int, plain: bool = False, taps=None,
 ):
-    """Expansion + packed emit through `expand`'s path; returns flat
-    unsorted (packed, payload) int32 [k_seg * v_cap].  `plain` runs the
-    kernel's plain PyTorch version on any device; `taps` (a dict) receives
-    the kernel's inputs."""
-    if expand == "fused":
-        args = (params, vline_ends, v_total, v_cap, k_seg, rows, tiles_x,
-                row_lo, slot_bits, tx_bits)
-        if taps is not None:
-            taps["rasterize"] = args
-        packed, payload = (rasterize_blocks_torch if plain else rasterize_blocks)(*args)
-    else:  # "split" (rasterize_sort checks `expand`)
-        col, j, v_live = _expand(params, vline_ends, v_total, v_cap, plain, taps)
-        packed, payload = _emit_packed(
-            col, j, v_live, k_seg, rows, tiles_x, row_lo, slot_bits, tx_bits,
-        )
+    """K4 (or its plain version): flat unsorted (packed, payload) int32
+    [k_seg * v_cap]; `taps` (a dict) receives K4's inputs under
+    "rasterize"."""
+    args = (params, vline_ends, v_total, v_cap, k_seg, rows, tiles_x,
+            row_lo, slot_bits, tx_bits)
+    if taps is not None:
+        taps["rasterize"] = args
+    packed, payload = (rasterize_blocks_torch if plain else rasterize_blocks)(*args)
     return packed.reshape(-1), payload.reshape(-1)
 
 
@@ -154,22 +140,19 @@ def sort_two_key(key_hi, key_lo, payload):
 def rasterize_sort(
     params, slots, lengths, vline_ends, v_total,
     v_cap: int, k_seg: int, rows: int, tiles_x: int,
-    row_lo=0, slot_bits: int = 0, expand: str = "fused",
-    plain: bool = False, taps=None,
+    row_lo=0, slot_bits: int = 0, plain: bool = False, taps=None,
     stamp=tracing.no_mark,  # the frame's stage stamps (`tracing.marker`)
 ):
     """Returns sorted (key_hi, key_lo, payload) int64 [v_cap * k_seg] of u32
     values.
 
-    `slot_bits > 0`: the packed key through `expand`'s path, then
-    `sort_segments`.  `slot_bits == 0`: the two-key route, K1 and the
-    emit in PyTorch whatever `expand` says (K4 packs only the one-word
-    key), then `sort_two_key`, each stamped as its stage (`expand`,
-    `emit`, `key_sort`); the packed key stamps nothing here.  Both sorts
-    are unstable.  `plain` runs each kernel's plain PyTorch version on any
-    device; `taps` (a dict) receives each kernel's inputs."""
-    if expand not in EXPAND_PATHS:
-        raise ValueError(f"expand must be one of {EXPAND_PATHS}, got {expand!r}")
+    `slot_bits > 0`: the packed key from K4, then `sort_segments`.
+    `slot_bits == 0`: the two-key route, K1 and the emit in PyTorch (K4
+    packs only the one-word key), then `sort_two_key`, each stamped as its
+    stage (`expand`, `emit`, `key_sort`); the packed key stamps nothing
+    here.  Both sorts are unstable.  `plain` runs each kernel's plain
+    PyTorch version on any device; `taps` (a dict) receives each kernel's
+    inputs."""
     if taps is not None:
         taps["rasterize_sort"] = (params, slots, lengths, vline_ends, v_total, v_cap,
                                   k_seg, rows, tiles_x, row_lo, slot_bits)
@@ -185,9 +168,8 @@ def rasterize_sort(
         return out
     tx_bits = max((tiles_x + 1).bit_length(), 1)
     packed, payload = _expand_emit_packed(
-        params, lengths, vline_ends, v_total,
-        v_cap, k_seg, rows, tiles_x, row_lo, slot_bits, tx_bits,
-        expand=expand, plain=plain, taps=taps,
+        params, vline_ends, v_total, v_cap, k_seg, rows, tiles_x, row_lo,
+        slot_bits, tx_bits, plain=plain, taps=taps,
     )
     return sort_segments(packed, payload, slot_bits, tx_bits)
 

@@ -7,8 +7,7 @@ Counterpart of `forma_tpu/ops/expand_pallas.py:201-380`
 The CUDA kernel (`csrc/rasterize.cu`) runs one thread per virtual line
 (each warp finds its lines with one search, and each segment boundary's
 crossing is found once); its plain version is `expand_params_torch`
-followed by `_emit_packed`, which is also the emit of the split path
-(`rasterize.rasterize_sort`).
+followed by `_emit_packed`.
 
 The emit is the i-th-intersection math (`rasterizer.rs:22-76`) over
 [k_seg, V] in float-float arithmetic (`ops/ff64.py`); pixel segments pack
@@ -220,8 +219,7 @@ def rasterize_blocks_torch(
     tiles_x: int, row_lo, slot_bits: int, tx_bits: int,
 ):
     """Plain PyTorch version of `rasterize_blocks`: K1's plain expansion,
-    then `_emit_packed` (the split path's emit); `row_lo` an int or a 0-d
-    tensor, as there."""
+    then `_emit_packed`; `row_lo` an int or a 0-d tensor, as there."""
     pt, j = expand_params_torch(params, vline_ends, v_cap)
     v_live = torch.arange(v_cap, device=params.device) < v_total
     return _emit_packed(

@@ -9,8 +9,7 @@ Renders paris-30k at `--width` x `--height`, 1920x1080 by default
 `--scene textured`, `demos.scenes.paris30k_textured`, buildings filled
 from a texture atlas; or `--scene svg`, paris-30k written as SVG text by
 `demos.scenes.paris30k_svg_text` and parsed by `demos.svg.Svg`) through
-`Renderer.render` on each expand path ("fused" and "split") and prints,
-per path:
+`Renderer.render` and prints:
 
 1. the unfenced frame time (host clock around `render`, which returns the
    frame on the host), median / min / max over `--frames` frames after
@@ -27,8 +26,8 @@ per path:
 4. `Renderer.profile_frame`'s `Timings`.
 
 Where the frame's [row | slot | tx] key passes 31 bits (7680x4320, for
-example), both expand paths take the two-key route (K1, the emit in
-PyTorch, the int64 two-key sort), so it is profiled once.
+example), the frame takes the two-key route (K1, the emit in PyTorch, the
+int64 two-key sort) in place of K4.
 
 Needs a CUDA card; it does not fall back to the CPU.
 """
@@ -44,7 +43,7 @@ import torch
 from . import Color, Composition, Renderer, tracing
 from .demos import scenes
 from .demos.svg import Svg
-from .ops import pipeline, rasterize
+from .ops import pipeline
 from .profiling import STAGES, fenced_stages, timings_line
 
 
@@ -116,24 +115,22 @@ def main(argv=None):
         len(comp.layers), -(-args.height // 16), -(-args.width // 16))
     print(f"card: {torch.cuda.get_device_name(0)}; scene: {args.scene} at "
           f"{args.width}x{args.height}; slot_bits {slot_bits}"
-          + (" (the two-key route on every expand path)" if slot_bits == 0 else ""))
-    paths = rasterize.EXPAND_PATHS if slot_bits else rasterize.EXPAND_PATHS[:1]
-    for expand in paths:
-        r = Renderer(expand=expand)
-        _frames(r, comp, 1, size)  # warm-up: grows the buckets, captures the graph
-        for eager in (False, True):
-            frames = _frames(r, comp, args.frames, size, eager)
-            print(f"expand={expand}, {'eager' if eager else 'graph'} frames: unfenced "
-                  f"median {statistics.median(frames):.2f} ms (min {min(frames):.2f}, "
-                  f"max {max(frames):.2f}, {args.frames} frames), diag "
-                  f"{r.last_diag.tolist()}, peak memory "
-                  f"{torch.cuda.max_memory_allocated()} bytes")
-        cap = r.graphs.last_capture
-        print(f"  graph: capture {cap.warmup_s:.3f} s warm-up + {cap.capture_s:.3f} s "
-              f"recording, pool {cap.pool_bytes} bytes")
-        _graph_stage_table(r, comp, args.frames, size)
-        _stage_table(r, comp, args.frames, size)
-        print(f"  Renderer.profile_frame: {timings_line(r.profile_frame(comp, *size, CLEAR))}")
+          + (" (the two-key route)" if slot_bits == 0 else ""))
+    r = Renderer()
+    _frames(r, comp, 1, size)  # warm-up: grows the buckets, captures the graph
+    for eager in (False, True):
+        frames = _frames(r, comp, args.frames, size, eager)
+        print(f"{'eager' if eager else 'graph'} frames: unfenced "
+              f"median {statistics.median(frames):.2f} ms (min {min(frames):.2f}, "
+              f"max {max(frames):.2f}, {args.frames} frames), diag "
+              f"{r.last_diag.tolist()}, peak memory "
+              f"{torch.cuda.max_memory_allocated()} bytes")
+    cap = r.graphs.last_capture
+    print(f"  graph: capture {cap.warmup_s:.3f} s warm-up + {cap.capture_s:.3f} s "
+          f"recording, pool {cap.pool_bytes} bytes")
+    _graph_stage_table(r, comp, args.frames, size)
+    _stage_table(r, comp, args.frames, size)
+    print(f"  Renderer.profile_frame: {timings_line(r.profile_frame(comp, *size, CLEAR))}")
 
 
 if __name__ == "__main__":

@@ -32,11 +32,10 @@ from .ops import pipeline as _pipe
 # own; a field may sum several rows (`runs`, `cull`).
 STAGES = (
     (_pipe._ls, "line_setup", "line_setup", 0, "line_setup"),
-    (_pipe._raster, "rasterize_sort", "rasterize_sort (expand, emit, sort, unpack)", 0,
-     "rasterize_sort"),
+    (_pipe._raster, "rasterize_sort", "rasterize_sort (K4, or K1 + emit; sort, unpack)",
+     0, "rasterize_sort"),
     (rasterize, "rasterize_blocks", "K4 rasterize_blocks (fused expand + emit)", 1, None),
     (rasterize, "expand_params", "K1 expand_params", 1, None),
-    (rasterize, "_emit_packed", "ff64 emit in PyTorch", 1, None),
     (rasterize, "_emit_two_key", "ff64 two-key emit in PyTorch", 1, None),
     (rasterize, "sort_two_key", "two-key int64 sort", 1, None),
     (_pipe._runs, "extract_runs", "extract_runs", 0, "runs"),

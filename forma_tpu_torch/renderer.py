@@ -166,18 +166,11 @@ class Renderer:
     `device=None` means the CUDA card, and raises `RuntimeError` when
     PyTorch sees none: the CPU is used only when the caller passes it
     (`Renderer("cpu")`), and then every kernel runs its plain PyTorch
-    version.  `expand` picks the rasterizer's expand path, one of
-    `ops.rasterize.EXPAND_PATHS` (checked there): `"fused"` (the fused
-    expand + emit kernel, the default and the faster) or `"split"` (the
-    expand kernel, then the emit in PyTorch).  Both compute the same
-    segments; `"split"` is not a tuning knob, it exists so that the expand
-    kernel stays on a path that is driven and checked.  The path applies
-    to frames whose sort key packs into one word; a frame with more layer
+    version.  A frame whose sort key packs into one word rasterizes
+    through the fused expand + emit kernel (K4); a frame with more layer
     slots than that key holds takes the two-key route (`render_device`)."""
 
-    def __init__(
-        self, device=None, caps: Optional[_pipe.Caps] = None, expand: str = "fused"
-    ):
+    def __init__(self, device=None, caps: Optional[_pipe.Caps] = None):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -186,7 +179,6 @@ class Renderer:
                 )
             device = "cuda"
         self.device = torch.device(device)
-        self.expand = expand
         self._geom_cache_key = None
         self._geom_cache = None
         self._slots_cache_key = None
@@ -857,8 +849,7 @@ class Renderer:
             _pipe.render_frame_cached,
             (*t["inputs"], prev_frame, prev_counts, st_unchanged),
             dict(width=width, height=height, rows=rows, tiles_x=tiles_x, caps=self._caps,
-                 features=t["features"], channels=t["chans"], expand=self.expand,
-                 taps=t["taps"]),
+                 features=t["features"], channels=t["chans"], taps=t["taps"]),
             dict(cache_ok=cache_ok, crop_x=crop_x, crop_y=crop_y),
         )
         pfx = self._dmg_prefix
@@ -962,10 +953,10 @@ class Renderer:
 
         Every fill, blend mode and clip, on either sort key: where [row |
         slot | tx] fits 31 bits (`pipeline.slot_bits_for`), the packed key
-        through the renderer's `expand` path; otherwise the two-key route,
-        which takes the expand kernel (K1) and the emit in PyTorch whatever
-        `expand` says (the fused kernel packs only the one-word key), then
-        the grid and fold kernels as every frame does.  On a CUDA device a
+        from the fused expand + emit kernel (K4); otherwise the two-key
+        route, which takes the expand kernel (K1) and the emit in PyTorch
+        (K4 packs only the one-word key), then the grid and fold kernels as
+        every frame does.  On a CUDA device a
         kernel that fails to build or launch raises; nothing falls back to
         a plain version.  There the frame is a replay of its key's CUDA
         graph (the regrow loop replays, reads the diagnostics, grows and
@@ -983,7 +974,7 @@ class Renderer:
         return self._until_fits(lambda: self._frame(
             _pipe.render_frame,
             (*inputs, width, height, rows, tiles_x, self._caps, st_host.features, chans),
-            dict(expand=self.expand, plain=plain, taps=taps),
+            dict(plain=plain, taps=taps),
             dict(row_lo=row_lo, crop_x=None if crop_x is None else tuple(crop_x)),
         ), check_caps)
 
@@ -1080,7 +1071,7 @@ class Renderer:
         return self._until_fits(lambda: self._sharded_frame(
             _pipe.render_frame_sharded, mesh,
             (*inputs, width, height, rows, tiles_x, self._caps, st_host.features, chans, mesh),
-            dict(expand=self.expand, taps=taps), ("_caps", self._caps),
+            dict(taps=taps), ("_caps", self._caps),
         ), check_caps)
 
     def render_device_sharded_lines(
@@ -1134,5 +1125,5 @@ class Renderer:
             _pipe.render_frame_sharded_lines, mesh,
             (*pairs, *inputs[3:], width, height, rows, tiles_x, self._caps_lines,
              st_host.features, chans, mesh, self._xcap),
-            dict(expand=self.expand, taps=taps), ("_caps_lines", self._caps_lines, self._xcap),
+            dict(taps=taps), ("_caps_lines", self._caps_lines, self._xcap),
         ), check_caps, "_caps_lines", exchange=True)

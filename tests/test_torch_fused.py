@@ -141,28 +141,19 @@ def test_rasterize_blocks_matches_jax(seed, L, dead, rows, row_lo, vcap_pad):
     assert differ <= 1e-4 * 2 * K_SEG * v_cap, differ
 
 
-def test_fused_and_split_paths_agree_without_launches():
-    """`rasterize_sort(expand="fused")` and `(expand="split")` give the same
-    segment multiset; on the CPU neither launches a kernel."""
+def test_packed_route_emits_without_launches():
+    """`rasterize_sort` on the packed key emits the scene's segments; on
+    the CPU it launches no kernel."""
     params, lengths, ends = _case(3, 800, True, width=256, height=128)
     slots = torch.zeros_like(lengths)
     v_cap = int(ends[-1]) + 300
     before = dict(_build.LAUNCHES)
-    out = {}
-    for expand in ("fused", "split"):
-        kh, kl, pay = rasterize.rasterize_sort(
-            params, slots, lengths, ends, ends[-1], v_cap, K_SEG, 8, 16, 0,
-            slot_bits=SLOT_BITS, expand=expand,
-        )
-        out[expand] = Counter(zip(kh.tolist(), kl.tolist(), pay.tolist()))
-    assert out["fused"] == out["split"]
-    assert sum(n for k, n in out["fused"].items() if k[0] != 0xFFFFFFFF) > 1000
+    kh, _, _ = rasterize.rasterize_sort(
+        params, slots, lengths, ends, ends[-1], v_cap, K_SEG, 8, 16, 0,
+        slot_bits=SLOT_BITS,
+    )
+    assert int((kh != 0xFFFFFFFF).sum()) > 1000
     assert _build.LAUNCHES == before
-    with pytest.raises(ValueError, match="expand"):
-        rasterize.rasterize_sort(
-            params, slots, lengths, ends, ends[-1], v_cap, K_SEG, 8, 16, 0,
-            slot_bits=SLOT_BITS, expand="bogus",
-        )
 
 
 def test_params_alignment_check():
@@ -222,9 +213,10 @@ BUDGET_ROWS, BUDGET_TILES_X, BUDGET_SLOT_BITS = 16, 32, 20
 
 @pytest.fixture(scope="module")
 def budget_frame():
-    """Line setup and JAX's sorted stream (run op by op) of a frame at the
+    """Line setup and JAX's sorted streams (run op by op) of a frame at the
     31-bit key budget, with layer slots up to 2^20 - 1 and lines reaching
-    the last tile row and column."""
+    the last tile row and column: on the packed key and on the two-key
+    route (`slot_bits` 0), keyed by `slot_bits`."""
     rng = np.random.default_rng(31)
     L = 400
     px = (rng.random(L + 1) * BUDGET_W * 1.2 - BUDGET_W * 0.1).astype(np.float32)
@@ -242,24 +234,26 @@ def budget_frame():
     v_cap = v_total + 100
     assert slot_bits_for(int(g_slot.max()) + 1, BUDGET_ROWS, BUDGET_TILES_X) == BUDGET_SLOT_BITS
     with jax.disable_jit():
-        want = [np.asarray(x).astype(np.int64) for x in jras.rasterize_sort(
+        want = {sb: [np.asarray(x).astype(np.int64) for x in jras.rasterize_sort(
             *map(jnp.asarray, (params, slots, lengths, ends)), jnp.uint32(v_total),
-            v_cap, K_SEG, BUDGET_ROWS, BUDGET_TILES_X, 0, slot_bits=BUDGET_SLOT_BITS)]
+            v_cap, K_SEG, BUDGET_ROWS, BUDGET_TILES_X, 0, slot_bits=sb)]
+            for sb in (BUDGET_SLOT_BITS, 0)}
     port_args = (*map(torch.from_numpy, (params, slots, lengths, ends.astype(np.int64))),
                  torch.tensor(v_total), v_cap)
     return port_args, want
 
 
-@pytest.mark.parametrize("expand", rasterize.EXPAND_PATHS)
-def test_rasterize_sort_at_the_key_budget_matches_jax(budget_frame, expand):
-    """`rasterize_sort` on both expand paths, at a key of exactly 31 bits,
-    against JAX's (op by op): the same sorted keys and, per key, the same
+@pytest.mark.parametrize("slot_bits", [BUDGET_SLOT_BITS, 0], ids=["fused", "two_key"])
+def test_rasterize_sort_at_the_key_budget_matches_jax(budget_frame, slot_bits):
+    """`rasterize_sort` at a key of exactly 31 bits, packed (K4) and on
+    the two-key route (K1 and the two-key emit), against JAX's (op by op)
+    with the same `slot_bits`: the same sorted keys and, per key, the same
     payloads.  The stream reaches the key's top fields: the largest slot
     and the last tile row."""
-    port_args, want = budget_frame
+    port_args, wants = budget_frame
+    want = wants[slot_bits]
     got = [x.numpy() for x in rasterize.rasterize_sort(
-        *port_args, K_SEG, BUDGET_ROWS, BUDGET_TILES_X, 0,
-        slot_bits=BUDGET_SLOT_BITS, expand=expand)]
+        *port_args, K_SEG, BUDGET_ROWS, BUDGET_TILES_X, 0, slot_bits=slot_bits)]
     assert all(x.dtype == np.int64 for x in got)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])

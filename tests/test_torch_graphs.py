@@ -193,15 +193,14 @@ def test_tensor_scalar_crops_match_jax(name, monkeypatch):
     np.testing.assert_array_equal(bufs[0], bufs[1])
 
 
-def _key_args(caps=pipeline.Caps(), features=None, chans=(0, 1, 2, 3), expand="fused",
+def _key_args(caps=pipeline.Caps(), features=None, chans=(0, 1, 2, 3), rows=4,
               n_lines=10, crop_x=None, row_lo=0):
     features = features or pipeline.Features()
     px = torch.zeros(n_lines + 1)
     st = {"orders": torch.zeros(4, dtype=torch.int64), "color": torch.zeros(4, 4)}
     args = (px, px, torch.zeros(n_lines, dtype=torch.int32), st, torch.zeros(4),
-            64, 64, 4, 4, caps, features, chans)
-    return args, dict(expand=expand, plain=False, taps=None), dict(row_lo=row_lo,
-                                                                    crop_x=crop_x)
+            64, 64, rows, 4, caps, features, chans)
+    return args, dict(plain=False, taps=None), dict(row_lo=row_lo, crop_x=crop_x)
 
 
 def _key(**kw):
@@ -223,7 +222,7 @@ def test_key_ignores_scalar_values():
     dict(features=pipeline.Features(has_gradient=True)),
     dict(features=pipeline.Features(blend_modes=(0, 3))),
     dict(chans=(2, 1, 0, 3)),
-    dict(expand="split"),
+    dict(rows=3),  # a row span of another height
     dict(n_lines=11),
     dict(crop_x=(0, 2)),
 ])

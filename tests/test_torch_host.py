@@ -278,7 +278,3 @@ def test_renderer_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         forma_tpu_torch.Renderer()
     assert forma_tpu_torch.Renderer("cpu").device.type == "cpu"
-    comp = forma_tpu_torch.Composition()
-    port_scenes.circles(comp, 2, 32, 32)
-    with pytest.raises(ValueError, match="expand"):
-        forma_tpu_torch.Renderer("cpu", expand="bogus").render(comp, 32, 32)

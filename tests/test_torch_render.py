@@ -254,8 +254,7 @@ def test_convert_round_trips_graft_prep():
 def test_no_kernel_launches_on_cpu():
     _build.reset_launches()
     comp = composition_from_jax(_circles(8))
-    for expand in ("fused", "split"):
-        Renderer("cpu", expand=expand).render(comp, 64, 64, CLEAR)
+    Renderer("cpu").render(comp, 64, 64, CLEAR)
     comp, clear = _random_styled_scene(0)
     Renderer("cpu").render(composition_from_jax(comp), 64, 64, clear)
     comp = Composition()
