@@ -69,15 +69,17 @@ failure exits non-zero:
    specialisation with textures against their plain versions, then the
    frame against the port's CPU render, as in phase 7;
 10. the two-key route (frames whose [row | slot | tx] key passes 31 bits:
-   K1, the emit in PyTorch and the int64 two-key sort, the runs re-sorted
-   into carry-chain order, K2, and K3 reading grid rows by src_u):
-   (a) paris-30k at 7680x4320 (slot_bits 0 asserted, K4 never launched):
-   K1, K2 and K3 `fold` on the frame's own inputs against their plain
-   versions and timed as in phase 3, the real units whose src_u differs
-   from src2_u counted (more than 0 required), the two-key emit, the int64
-   sort, the whole rasterize_sort and run_data's re-sort timed, then the
-   frame as in phase 5 (expand, grid and fold launched, rasterize never)
-   against the plain path on the card; (b) paris-30k-styled and
+   K1, the two-key emit kernel and the int64 two-key sort, the runs
+   re-sorted into carry-chain order, K2, and K3 reading grid rows by
+   src_u): (a) paris-30k at 7680x4320 (slot_bits 0 asserted, K4 never
+   launched): K1, the two-key emit, K2 and K3 `fold` on the frame's own
+   inputs against their plain versions and timed as in phase 3 (the emit
+   also by CUDA graph replays), the real units whose src_u differs from
+   src2_u counted (more than 0 required), the emit kernel beside its plain
+   version, the int64 sort, the whole rasterize_sort and run_data's
+   re-sort timed, then the frame as in phase 5 (expand, emit_two_key, grid
+   and fold launched, as many emits as expands, rasterize never) against
+   the plain path on the card; (b) paris-30k-styled and
    -textured at 7680x4320: K3 `fold_styled` and `fold_tex` against their
    plain versions; (c) the envelope tool's lattice (140,000 layers at
    1920x1080, 18 slot bits, built with the port's classes): the kernels
@@ -242,9 +244,10 @@ failure exits non-zero:
    animation at 1080p and 4K (17: ANIM_FRAMES `check_caps=False` frames
    each way under `torch.cuda.set_sync_debug_mode("error")`).  Each must
    show 0 differing pixels and an equal diag, its path's kernels launched
-   inside the replay (K4 or K1, K2, K3's specialisation, once a shard on
-   the sharded frames; never K4 on the two-key route), each a node of the
-   recorded graph (`graph_witness`),
+   inside the replay (K4, or K1 and the two-key emit, as many of one as
+   of the other; K2, K3's specialisation, once a shard on the sharded
+   frames; never K4 on the two-key route), each a node of the recorded
+   graph (`graph_witness`),
    and no capture after its first frame; each prints, graph
    beside eager (`render_device(taps={})`, or the eager renderer), ms a
    frame as median/min/max of GRAPH_FRAMES frames in each of GRAPH_REPEATS
@@ -255,8 +258,9 @@ failure exits non-zero:
    4-20 that is not `plain=True` or `taps=` is a graph frame, and phase
    5's and phase 19's timed frames are held to be replays.
 
-The last three lines are a JSON object with per-kernel results (K1 on the
-7680x4320 two-key frame; K3 once per specialisation, solid, styled,
+The last three lines are a JSON object with per-kernel results (K1 and the
+two-key emit on the 7680x4320 two-key frame, the emit again on the
+140,000-layer lattice; K3 once per specialisation, solid, styled,
 textured, clip, and `fold` again on the 7680x4320 two-key frame, then
 `fold_styled` on phase 15's cropped frame (row_lo 20) and `fold` on a
 phase 16 spaceship frame (its unchanged tiles skipped); K4, K2 and K3
@@ -338,6 +342,9 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 K3 = "forma_tpu/ops/paint_pallas.py:468"
+# The two-key emit replaces no `pallas_call`: the JAX package's emit is XLA
+# elementwise code on `expand_params_pallas`'s output.
+EMIT_TWO_KEY = "none (forma_tpu/ops/rasterize.py:216-226, :334-372; XLA elementwise)"
 KERNELS = (
     # name (= launch counter), source, TPU kernel it replaces, the run whose
     # launches count for it (paris-30k, the styled or textured frame, the
@@ -347,6 +354,10 @@ KERNELS = (
     ("expand", "forma_tpu_torch/csrc/expand.cu",
      "forma_tpu/ops/expand_pallas.py:175", "wide", "expand_wide",
      "paris-30k 7680x4320 (two-key)"),
+    ("emit_two_key", "forma_tpu_torch/csrc/rasterize.cu", EMIT_TWO_KEY, "wide",
+     "emit_two_key_wide", "paris-30k 7680x4320 (two-key)"),
+    ("emit_two_key", "forma_tpu_torch/csrc/rasterize.cu", EMIT_TWO_KEY, "lattice",
+     "emit_two_key_lattice", "the 140,000-layer lattice 1920x1080 (two-key)"),
     ("rasterize", "forma_tpu_torch/csrc/rasterize.cu",
      "forma_tpu/ops/expand_pallas.py:356", "fused", "rasterize", "paris-30k 1920x1080"),
     ("grid", "forma_tpu_torch/csrc/grid.cu",
@@ -411,7 +422,7 @@ PATHS = {
     "mix": ("rasterize", "grid", "fold_clip"),
     "textured": ("rasterize", "grid", "fold_tex"),
     "texmix": ("rasterize", "grid", "fold_clip"),
-    "wide": ("expand", "grid", "fold"),  # the two-key route: K1, never K4
+    "wide": ("expand", "emit_two_key", "grid", "fold"),  # the two-key route: never K4
     "crop": ("rasterize", "grid", "fold_styled"),
     "spaceship": ("rasterize", "grid", "fold"),
     "svg": ("rasterize", "grid", "fold"),
@@ -466,6 +477,8 @@ K3_BLOCKS_PER_SM = (8, 12)
 # Over blend, coverage 7 and 1 add without it.  csrc/microbench.cu K6 per
 # unit-pixel: 3 (1 - c, the multiply, + c); K7 and K9 do no float
 # arithmetic.
+# The two-key emit runs K4's per-segment code: the same counts, its line
+# work and its first find once per live virtual line.
 K4_F32_OPS_PER_FIND, K4_F32_OPS_PER_LINE, K4_F32_OPS_PER_SEGMENT = 76, 12, 22
 K4_F32_OPS_PER_SEGMENT_TWO_FINDS = 198
 K3_F32_OPS_PER_UNIT_PIXEL = 29
@@ -639,7 +652,7 @@ def kernel_bytes(name: str, args, out) -> int:
         return fold_bytes(args, out)
     if name == "texture_probe":
         return probe_bytes(args, out)
-    if name == "scan":  # no TPU function: the port's own widths
+    if name in ("scan", "emit_two_key"):  # no TPU function: the port's own widths
         return tensor_bytes(args, True) + tensor_bytes(out, True)
     return tensor_bytes(args) + tensor_bytes(out)
 
@@ -678,8 +691,22 @@ def k4_work(args) -> tuple:
             int((lengths > 0).sum()))
 
 
+def emit_work(args) -> tuple:
+    """(pixel segments in range, live vlines) of the two-key emit's inputs:
+    vline v < v_total of length len and index j holds min(len - j k_seg,
+    k_seg) segments, live where that is positive."""
+    pt, j, v_total, _, k_seg = args[:5]
+    n = int(v_total)
+    left = pt[15, :n].long() - j[:n].long() * k_seg  # PLEN
+    return int(left.clamp(0, k_seg).sum()), int((left > 0).sum())
+
+
 def f32_ops(name: str, args) -> int:
     """f32 operations the kernel does on these inputs (data-dependent)."""
+    if name == "emit_two_key":
+        segs, vlines = emit_work(args)
+        return (K4_F32_OPS_PER_SEGMENT * segs + K4_F32_OPS_PER_FIND * (segs + vlines)
+                + K4_F32_OPS_PER_LINE * vlines)
     if name == "rasterize":
         segs, _, lines = k4_work(args)
         return (K4_F32_OPS_PER_SEGMENT * segs + K4_F32_OPS_PER_FIND * (segs + lines)
@@ -743,8 +770,9 @@ def library_call(name: str, args):
     return None
 
 
-# K4's and K3's argument index of `row_lo` (`rasterize_blocks`, `paint_fold`).
-ROW_LO_ARG = {"rasterize": 7, "fold": 15, "fold_styled": 15, "fold_tex": 15, "fold_clip": 15}
+# K4's, the two-key emit's and K3's argument index of `row_lo`
+# (`rasterize_blocks`, `emit_two_key`, `paint_fold`).
+ROW_LO_ARG = {"rasterize": 7, "emit_two_key": 6, "fold": 15, "fold_styled": 15, "fold_tex": 15, "fold_clip": 15}
 
 
 def row_lo_on_device(name: str, args, build=None) -> tuple:
@@ -766,8 +794,9 @@ def check_kernel(name: str, kern, plain, args, graph: bool = False, **label) -> 
     required); returns the kernels line's numbers for it.  `graph` adds
     the device time per call from CUDA graph replays (`ms_graph`, and
     `library_ms_graph` where the library call allows a graph).  `label` is
-    printed with the numbers.  K4's and K3's `row_lo` is passed as the
-    device scalar a graph frame passes (`row_lo_on_device`)."""
+    printed with the numbers.  K4's, the two-key emit's and K3's `row_lo`
+    is passed as the device scalar a graph frame passes
+    (`row_lo_on_device`)."""
     args = row_lo_on_device(name, args)
     got = kern(*args)
     torch.cuda.synchronize()
@@ -975,6 +1004,7 @@ def frame_path(label: str, path: str, r, comp, size, ref, n_timed: int = 5) -> d
     for name in PATHS[path]:
         if launches[name] < 1:
             raise AssertionError(f"{label}: kernel {name} was never launched on the {path} path")
+    two_key_launches(f"{label} ({path})", launches)
     if diff.max() > 1:
         raise AssertionError(f"{label} ({path}): max channel diff {diff.max()} > 1")
     return launches
@@ -1059,31 +1089,28 @@ LATTICE_STRIP_LAYERS = 2_000
 
 
 def two_key_stages(label: str, taps) -> dict:
-    """The two-key route's PyTorch stages on a frame's own inputs, each
-    timed by CUDA events (batches of back-to-back calls): the emit after
-    K1 (`rasterize._emit_two_key`), the int64 sort (`sort_two_key`), the
-    whole `rasterize_sort` stage, and `run_data` with and without its
-    re-sort into carry-chain order (`presorted` False and True on the same
-    runs; the difference is the re-sort: the int64 sort, the inverse
-    permutation, the rowcov gather and the real_flags scatter)."""
-    from forma_tpu_torch.ops import expand_kernel as ek
+    """The two-key route's stages on a frame's own inputs, each timed by
+    CUDA events (batches of back-to-back calls): the emit after K1
+    (`rasterize_kernel.emit_two_key`) beside its plain version
+    (`emit_two_key_torch`, the PyTorch chain it replaced), the int64 sort
+    (`sort_two_key`), the whole `rasterize_sort` stage, and `run_data`
+    with and without its re-sort into carry-chain order (`presorted`
+    False and True on the same runs; the difference is the re-sort: the
+    int64 sort, the inverse permutation, the rowcov gather and the
+    real_flags scatter)."""
     from forma_tpu_torch.ops import rasterize as ras
+    from forma_tpu_torch.ops import rasterize_kernel as rk
     from forma_tpu_torch.ops import runs
 
     stage = taps["rasterize_sort"]
-    v_total, v_cap, k_seg, rows, tiles_x, row_lo = stage[4:10]
-    pt, j = ek.expand_params(*taps["expand"])
-    v_live = torch.arange(v_cap, device=pt.device) < v_total
-
-    def emit():
-        return ras._emit_two_key(lambda i: pt[i], j, v_live, k_seg, rows, tiles_x, row_lo)
-
-    kh, kl, pl = (t.reshape(-1) for t in emit())
+    args = row_lo_on_device("emit_two_key", taps["emit_two_key"])
+    key, pay = (t.reshape(-1) for t in rk.emit_two_key(*args))
     rd_args = taps["run_data"]
     times = {
-        "two_key_emit_ms": time_ms(emit, batches=3, per_batch=3),
-        "int64_sort_ms": time_ms(lambda: ras.sort_two_key(kh, kl, pl), batches=3,
-                                 per_batch=3),
+        "two_key_emit_ms": time_ms(lambda: rk.emit_two_key(*args)),
+        "two_key_emit_plain_ms": time_ms(lambda: rk.emit_two_key_torch(*args), batches=3,
+                                         per_batch=3),
+        "int64_sort_ms": time_ms(lambda: ras.sort_two_key(key, pay), batches=3, per_batch=3),
         "rasterize_sort_ms": time_ms(
             lambda: ras.rasterize_sort(*stage[:10], slot_bits=stage[10]), batches=3,
             per_batch=3),
@@ -1093,7 +1120,8 @@ def two_key_stages(label: str, taps) -> dict:
             lambda: runs.run_data(*rd_args, presorted=True), batches=3, per_batch=3),
     }
     times["run_data_resort_ms"] = times["run_data_ms"] - times["run_data_without_resort_ms"]
-    say(label, segment_slots=kh.numel(), valid_segments=int((kh != U32_SENTINEL).sum()),
+    say(label, segment_slots=key.numel(),
+        valid_segments=int((key != rk.TWO_KEY_SENTINEL).sum()),
         runs=int(rd_args[5]), **{k: f"{v:.4f}" for k, v in times.items()})
     return times
 
@@ -1113,11 +1141,12 @@ def two_key_units(label: str, args) -> int:
 
 def wide_frame(device, label: str, build, size, counter: str, frame_check: bool) -> tuple:
     """One two-key frame at `size` built by `build(comp)`: slot_bits 0
-    asserted, K1, K2 and K3 (specialisation `counter`) held bit-equal to
-    their plain versions on the frame's own inputs and timed; with
-    `frame_check`, the two-key stages timed and the frame through
-    `Renderer.render` (counters reset, warm-up, 5 timed frames, counters
-    read: expand, grid and `counter` launched, rasterize never) against
+    asserted, K3 (specialisation `counter`) held bit-equal to its plain
+    version on the frame's own inputs and timed; with `frame_check`, K1,
+    the two-key emit (also by CUDA graph replays) and K2 too, the two-key
+    stages timed and the frame through `Renderer.render` (counters reset,
+    warm-up, 5 timed frames, counters read: expand, emit_two_key, grid and
+    `counter` launched, as many emits as expands, rasterize never) against
     the plain path on the card.  Returns ({kernel: numbers}, launches or
     None, renderer, composition)."""
     from forma_tpu_torch import Color, Composition, Renderer
@@ -1142,6 +1171,7 @@ def wide_frame(device, label: str, build, size, counter: str, frame_check: bool)
         raise AssertionError(f"{label}: slot_bits {slot_bits}: not the two-key route")
     from forma_tpu_torch.ops import expand_kernel as ek
     from forma_tpu_torch.ops import grid_kernel as gk
+    from forma_tpu_torch.ops import rasterize_kernel as rk
 
     fold_depths(label, taps["fold"])
     two_key_units(label, taps["fold"])
@@ -1149,6 +1179,9 @@ def wide_frame(device, label: str, build, size, counter: str, frame_check: bool)
     if frame_check:
         res["expand"] = check_kernel("expand", ek.expand_params, ek.expand_params_torch,
                                      taps["expand"], frame=label)
+        res["emit_two_key"] = check_kernel("emit_two_key", rk.emit_two_key,
+                                           rk.emit_two_key_torch, taps["emit_two_key"],
+                                           graph=True, frame=label)
         res["grid"] = check_kernel("grid", gk.grid_build, gk.grid_build_torch, taps["grid"],
                                    frame=label)
     res[counter] = check_fold(counter, taps["fold"], frame=label)
@@ -1224,9 +1257,10 @@ def forced_two_key_mix(device, label: str, build) -> tuple:
         differing_pixels_vs_packed=int((diff > 0).any(axis=-1).sum()))
     if diff.max() != 0:
         raise AssertionError(f"{label}: the two-key frame differs from the packed frame")
-    for name in ("expand", "grid", "fold_clip"):
+    for name in ("expand", "emit_two_key", "grid", "fold_clip"):
         if launches[name] < 1:
             raise AssertionError(f"{label}: {name} was never launched")
+    two_key_launches(label, launches)
     if launches["rasterize"] != 0:
         raise AssertionError(f"{label}: K4 launched on the two-key route")
     return res, launches
@@ -1240,7 +1274,7 @@ def wide_key(device) -> tuple:
     its top-left strip against the port's CPU render of the first 2,000
     layers); (d) the styled and textured mixes with the route forced,
     against their packed frames.  Returns ({result key: numbers},
-    launches of the 7680x4320 run)."""
+    {"wide": launches of the 7680x4320 run, "lattice": the lattice's})."""
     from forma_tpu_torch import Color, Composition, Renderer
     from forma_tpu_torch.demos import scenes
 
@@ -1248,8 +1282,9 @@ def wide_key(device) -> tuple:
     out = {}
     res, launches, r, comp = wide_frame(
         device, "wide", lambda c: scenes.paris30k(c, *size), size, "fold", True)
-    out.update({"expand_wide": res["expand"], "grid_wide": res["grid"],
-                "fold_wide": res["fold"], "stages_wide": res["stages"]})
+    out.update({"expand_wide": res["expand"], "emit_two_key_wide": res["emit_two_key"],
+                "grid_wide": res["grid"], "fold_wide": res["fold"],
+                "stages_wide": res["stages"]})
     del r, comp
     for label, counter in (("styled", "fold_styled"), ("textured", "fold_tex")):
         res, _, r, comp = wide_frame(
@@ -1262,6 +1297,7 @@ def wide_key(device) -> tuple:
     res, lattice_launches, r, comp = wide_frame(
         device, "lattice", envelope_lattice, (PARIS_W, PARIS_H), "fold", True)
     out["lattice"] = res
+    out["emit_two_key_lattice"] = res["emit_two_key"]
     clear = Color(1.0, 1.0, 1.0, 1.0)
     img = r.render(comp, PARIS_W, PARIS_H, clear)
     del r, comp
@@ -1280,7 +1316,7 @@ def wide_key(device) -> tuple:
         device, "wide-mix", lambda c: scenes.styled_mix(c, 400, MIX_W, MIX_H))
     out["fold_clip_wide_texmix"], _ = forced_two_key_mix(
         device, "wide-texmix", lambda c: scenes.textured_mix(c, 300, MIX_W, MIX_H))
-    return out, launches
+    return out, {"wide": launches, "lattice": lattice_launches}
 
 
 def texture_probe(device) -> tuple:
@@ -1588,14 +1624,30 @@ def count_launches(total: dict, fn):
     return out
 
 
+def stem(name: str) -> str:
+    """A launch counter's kernel stem (`graphs.KERNELS`): the stem it is or
+    starts with before an underscore (K3's specialisations, `fold_styled`
+    ..., are `fold`)."""
+    from forma_tpu_torch.graphs import KERNELS
+
+    return next((k for k in KERNELS if name == k or name.startswith(k + "_")), name)
+
+
 def stems(counts: dict) -> dict:
-    """Launch counts by kernel stem (`graphs.KERNELS`): K3's
-    specialisations (`fold_styled`, ...) count as `fold`; zeros dropped."""
+    """Launch counts by kernel stem (`stem`); zeros dropped."""
     out = {}
     for name, v in counts.items():
         if v:
-            out[name.split("_")[0]] = out.get(name.split("_")[0], 0) + v
+            out[stem(name)] = out.get(stem(name), 0) + v
     return out
+
+
+def two_key_launches(label: str, launches: dict) -> None:
+    """Every two-key frame launches K1 and the two-key emit once each and a
+    packed frame neither: raises unless the two counts are equal."""
+    if launches.get("emit_two_key", 0) != launches.get("expand", 0):
+        raise AssertionError(f"{label}: {launches.get('emit_two_key', 0)} two-key emits "
+                             f"for {launches.get('expand', 0)} K1 launches")
 
 
 def graph_witness(label: str, cap, kernels) -> dict:
@@ -1605,7 +1657,7 @@ def graph_witness(label: str, cap, kernels) -> dict:
     must equal, stem by stem, what the capture grew the launch counters
     by (what each replay adds to them)."""
     nodes = cap.kernel_nodes
-    missing = [k for k in kernels if not (nodes or {}).get(k.split("_")[0])]
+    missing = [k for k in kernels if not (nodes or {}).get(stem(k))]
     if nodes is None or missing or nodes != stems(cap.launches):
         raise AssertionError(f"{label}: the graph's kernel nodes {nodes} lack {missing} or "
                              f"differ from its capture's launches {cap.launches}")
@@ -2374,7 +2426,7 @@ def sharded_phase(device, card: str, paris) -> tuple:
             regrows=r.regrow_count, graphs_captured=captures, graph_kernel_nodes=nodes)
         if (differing or vs_eager or any(gd[i] != d1[i] for i in kept)
                 or not np.array_equal(gd, d) or captures != 1
-                or any(nodes.get(k.split("_")[0]) != SHARDS for k in PATHS[path])):
+                or any(nodes.get(stem(k)) != SHARDS for k in PATHS[path])):
             raise AssertionError(
                 f"sharded {path}: {differing} pixels off render_device, {vs_eager} off the "
                 f"eager frame, diag {gd.tolist()} against {d1.tolist()} at {kept} and "
@@ -2987,6 +3039,7 @@ def graph_row(label: str, r, graph_step, eager_step, kernels, never=()) -> dict:
     GRAPH_ROWS.append(row)
     missing = [k for k in kernels if launches.get(k, 0) < 1]
     graph_witness(f"graphs {label}", cap, kernels)
+    two_key_launches(f"graphs {label}", launches)
     if (row["differing_pixels"] or not row["diag_equal"] or missing or replayed != 1
             or any(launches.get(k) for k in never) or r.graphs.captures != captures):
         raise AssertionError(
@@ -3235,7 +3288,7 @@ def graph_check(card: str) -> int:
         comp = Composition()
         mixes["mix"](comp)
         graph_frame("mix 512x512 (two-key forced)", Renderer(device), comp, (MIX_W, MIX_H),
-                    ("expand", "grid", "fold_clip"), never=("rasterize",))
+                    ("expand", "emit_two_key", "grid", "fold_clip"), never=("rasterize",))
     finally:
         pipeline.slot_bits_for = real
     graph_ship(device)
@@ -3398,11 +3451,14 @@ def main() -> int:
         device, "texmix", lambda comp: scenes.textured_mix(comp, 300, MIX_W, MIX_H))
 
     # 10. the two-key route
-    wide, launches["wide"] = wide_key(device)
+    wide, wide_launches = wide_key(device)
+    launches.update(wide_launches)
     kres.update(wide)
     say("wide", question="the two-key route's stages at 7680x4320", card=repr(card),
         **{k: f"{v:.4f}" for k, v in wide["stages_wide"].items()},
-        k1_ms=f"{wide['expand_wide']['ms']:.4f}", k2_ms=f"{wide['grid_wide']['ms']:.4f}",
+        k1_ms=f"{wide['expand_wide']['ms']:.4f}",
+        emit_ms_graph=f"{wide['emit_two_key_wide']['ms_graph']:.4f}",
+        k2_ms=f"{wide['grid_wide']['ms']:.4f}",
         k3_ms=f"{wide['fold_wide']['ms']:.4f}")
 
     # 11. K5

@@ -24,7 +24,7 @@ is none; only an explicit `Renderer("cpu")` runs on the CPU.  Tensors on a
 CUDA device run the kernels; tensors on the CPU run each kernel's plain
 PyTorch version.  A frame rasterizes through the fused expand + emit
 kernel (K4), or, where its sort key does not pack into one word, through
-the expand kernel (K1) and the two-key emit.  `Renderer.profile_frame`
+the expand kernel (K1) and the two-key emit kernel.  `Renderer.profile_frame`
 times one frame stage by stage (`Timings`); `tracing` holds the port's
 own spans and the stage stamps inside its frame graphs.
 

@@ -8,9 +8,9 @@ The JAX package compiles each frame entry point
 dispatch of that program (`forma_tpu/profiling.py:3-4`).  On the card the
 counterpart is a CUDA graph: `FrameGraphs.run` captures a frame once per
 key and replays it once per frame, with every hand-written kernel of the
-frame (K4, or K1 and the emit; K2; K3) and every PyTorch op inside the
-replay.  A CUDA graph belongs to one card, so a renderer keeps one
-`FrameGraphs` a card: a sharded frame whose shards all sit on the
+frame (K4, or K1 and the two-key emit; K2; K3) and every PyTorch op
+inside the replay.  A CUDA graph belongs to one card, so a renderer keeps
+one `FrameGraphs` a card: a sharded frame whose shards all sit on the
 renderer's card is one graph of the whole entry point (its collectives
 are copies on that card), and one whose shards sit on several cards
 replays each card's graph of its piece (`pipeline.row_shards`, or
@@ -87,9 +87,10 @@ from .ops import _build
 
 BOUND = 8  # graphs a renderer keeps
 # The hand-written kernels a frame launches, by the name stem of their
-# `__global__` functions (`csrc/expand.cu` K1, `rasterize.cu` K4, `grid.cu`
-# K2, `fold.cu` K3 in each specialisation, `scan.cu` the prefix scans).
-KERNELS = ("expand", "rasterize", "grid", "fold", "scan")
+# `__global__` functions (`csrc/expand.cu` K1, `rasterize.cu` K4 and the
+# two-key emit, `grid.cu` K2, `fold.cu` K3 in each specialisation,
+# `scan.cu` the prefix scans).
+KERNELS = ("expand", "rasterize", "emit_two_key", "grid", "fold", "scan")
 
 
 class Capture(NamedTuple):

@@ -5,9 +5,11 @@
   expand_kernel  K1: per-line params onto virtual lines (csrc/expand.cu)
   rasterize_kernel
                  K4: K1 fused with the ff64 emit of packed segment keys
-                 and payloads (csrc/rasterize.cu); the emit's plain version
-  rasterize      the packed route (K4) or the two-key route (K1 + emit),
-                 then one torch.sort
+                 and payloads (csrc/rasterize.cu); the two-key emit of
+                 int64 keys from K1's output (same source); the emit's
+                 plain version
+  rasterize      the packed route (K4) or the two-key route (K1 + the
+                 two-key emit), then one torch.sort
   grid_kernel    K2: per-run area|cover grids and run keys (csrc/grid.cu)
   scan           the prefix scans (max, sum; segmented, reversed) of runs
                  and paint (csrc/scan.cu)

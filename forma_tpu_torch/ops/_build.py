@@ -40,7 +40,7 @@ NVCC_FLAGS = (
 # takes back what its kernels' wrappers added (`capturing`), and each replay
 # adds that again (`replayed`): the counts stay launches on the card.
 LAUNCHES = {
-    "expand": 0, "rasterize": 0, "grid": 0, "scan": 0,
+    "expand": 0, "rasterize": 0, "emit_two_key": 0, "grid": 0, "scan": 0,
     # K3, one counter per specialisation (`fold_kernel.variant`)
     "fold": 0, "fold_styled": 0, "fold_tex": 0, "fold_clip": 0,
     # K5-K9, the probes (`probes.*`)
@@ -57,6 +57,7 @@ _SIGNATURES = {
     "forma_scan": [_P, _I64, _I64, _P, _P, _I64, _I64, _I64, _P, _I64, _P],
     "forma_fold": [_P] * 13 + [_I64] * 4 + [_P, _P, _I64, _I64, _P, _P],
     "forma_rasterize": [_P] * 3 + [_I64] * 5 + [_P] + [_I64] * 2 + [_P, _P, _P],
+    "forma_emit_two_key": [_P] * 3 + [_I64] * 4 + [_P] * 4,
     "forma_texture_probe": [_P, _P] + [_I64] * 5 + [_P, _P],
     "forma_fold_ablate": [_P] * 3 + [_I64] * 5 + [_P, _P],
     "forma_unit_stream": [_P] * 3 + [_I64, _P, _P],

@@ -7,7 +7,8 @@ every such value as an int64 in [0, 2^32): the same order, the same bit
 fields, and the sentinel still sorts last.  One exception: the segment
 sort's keys and payloads stay 32-bit words in int32 tensors from K4 through
 the sort (`rasterize_kernel.py`: valid keys fit 31 bits, the sentinel
-there is 0x7FFFFFFF), and widen to int64 after it.  Bit views between f32
+there is 0x7FFFFFFF), and widen to int64 after it; so do the two-key
+emit's payloads.  Bit views between f32
 and i32 go through `Tensor.view`.
 """
 

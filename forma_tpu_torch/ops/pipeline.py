@@ -11,9 +11,9 @@ and the changed tiles come back compacted for a small readback.
 
 Every frame takes either sort key: the packed single key (`slot_bits >
 0`) and, where [row | slot | tx] passes 31 bits, the two-key route
-(`slot_bits == 0`: K1 and the emit in PyTorch, the int64 two-key sort,
-the runs re-sorted into carry-chain order, and K3 reading each unit's
-grid row by `src_u`), as the JAX package routes them
+(`slot_bits == 0`: K1 and the two-key emit kernel, the int64 two-key
+sort, the runs re-sorted into carry-chain order, and K3 reading each
+unit's grid row by `src_u`), as the JAX package routes them
 (`forma_tpu/ops/pipeline.py:98-110,123,147`).  A row-span crop renders
 tile rows [row_lo, row_lo + rows): the rasterizer shifts them to the
 frame's rows, and K3 evaluates fills at the global rows.
@@ -38,9 +38,9 @@ frame, or one card's piece of it, be captured as a CUDA graph.
 `render_frame` and `render_frame_cached` stamp their stage boundaries
 (`tracing.marker`: on a card, nodes of the captured graph), unless
 `plain`; the sharded frames stamp nothing.  On the two-key route the
-stamps split the work: `expand` (K1), `emit` (the two-key emit) and
-`key_sort` (the int64 sort and its unpack) in place of `rasterize_sort`,
-and `carry_sort` (`run_data`'s re-sort of the runs) out of `runs`.
+stamps split the work: `expand` (K1), `emit` (the two-key emit kernel)
+and `key_sort` (the int64 sort and its unpack) in place of
+`rasterize_sort`, and `carry_sort` (`run_data`'s re-sort of the runs) out of `runs`.
 """
 
 from __future__ import annotations

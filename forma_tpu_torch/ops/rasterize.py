@@ -18,16 +18,18 @@ Two routes, chosen by `slot_bits` (`pipeline.slot_bits_for`):
   (key_hi, key_lo, payload) of u32 values that the runs stage takes
   (`_u32.py`), the u32 sentinel in key_hi.
 - Two keys (`slot_bits == 0`, layer slots too wide to pack): key_hi =
-  (row + 1) << TX_BITS | (tx + 1) and key_lo = the layer slot
-  (`_emit_two_key`).  K4 packs only the one-word key (as the JAX package's
-  fused branch, `forma_tpu/ops/rasterize.py:311`), so a two-key frame
-  takes K1 (`expand_kernel.expand_params`) and the emit in PyTorch: the
-  JAX package's own route on its chip (backend "pallas",
-  `forma_tpu/ops/rasterize.py:334-372`).  The pair sorts as one int64 key
-  (`sort_two_key`).  Runs then arrive in (row, tx, layer) order, and the
-  runs stage re-sorts them into carry-chain order
-  (`runs.run_data(presorted=False)`).  The route stamps its own stages
-  (`tracing`): `expand`, `emit` and `key_sort`.
+  (row + 1) << TX_BITS | (tx + 1) and key_lo = the layer slot.  K4 packs
+  only the one-word key (as the JAX package's fused branch,
+  `forma_tpu/ops/rasterize.py:311`), so a two-key frame takes K1
+  (`expand_kernel.expand_params`) and the two-key emit kernel
+  (`rasterize_kernel.emit_two_key`), which writes each segment as the
+  pair combined into one int64 key with its u32 payload word: the JAX
+  package's own route on its chip (backend "pallas",
+  `forma_tpu/ops/rasterize.py:334-372`).  One unstable sort orders the
+  int64 key, the payload gathered along (`sort_two_key`).  Runs then
+  arrive in (row, tx, layer) order, and the runs stage re-sorts them into
+  carry-chain order (`runs.run_data(presorted=False)`).  The route stamps
+  its own stages (`tracing`): `expand`, `emit` and `key_sort`.
 """
 
 from __future__ import annotations
@@ -38,29 +40,30 @@ from .. import consts, tracing
 from ._u32 import MASK32, SENTINEL
 from .expand_kernel import expand_params, expand_params_torch
 from .rasterize_kernel import (
-    PACKED_SENTINEL, _emit_core, rasterize_blocks, rasterize_blocks_torch,
+    PACKED_SENTINEL, SLOT_FIELD_BITS, TWO_KEY_SENTINEL, TX_BITS, emit_two_key,
+    emit_two_key_torch, rasterize_blocks, rasterize_blocks_torch,
 )
 
-TX_BITS = 13  # tile_x + 1 in the canonical key_hi (max 4096 tiles of 16)
-# The two-key sort's combined int64 key is key_hi << SLOT_FIELD_BITS |
-# key_lo: a valid key_hi is below 2^25 ((2049 << 13) | 4097 at the
-# format's limits) and a slot below 2^21, so it fits 46 bits, and the
-# sentinel maps to int64's maximum, above every valid key (the u32
-# sentinel shifted left by 21 would not fit, and by 32 would sort first).
-SLOT_FIELD_BITS = consts.LAYER_LIMIT.bit_length()  # 21
-TWO_KEY_SENTINEL = (1 << 63) - 1
 
-
-def _expand(params, vline_ends, v_total, v_cap: int, plain: bool, taps):
-    """K1 (or its plain version): (col, j, v_live) for an emit, where
-    `col(i)` is param row i over the v_cap vlines; `taps` (a dict)
-    receives K1's inputs under "expand"."""
+def _expand_emit_two_key(
+    params, vline_ends, v_total, v_cap: int, k_seg: int, rows: int, tiles_x: int,
+    row_lo, plain: bool, taps, stamp,
+):
+    """K1, then the two-key emit (or their plain versions), each stamped
+    as its stage: flat unsorted (key int64, payload int32) [k_seg * v_cap];
+    `taps` (a dict) receives K1's inputs under "expand" and the emit's
+    under "emit_two_key"."""
     args = (params, vline_ends, v_cap)
     if taps is not None:
         taps["expand"] = args
     pt, j = (expand_params_torch if plain else expand_params)(*args)
-    v_live = torch.arange(v_cap, device=params.device) < v_total
-    return (lambda i: pt[i]), j, v_live
+    stamp("expand")
+    args = (pt, j, v_total, k_seg, rows, tiles_x, row_lo)
+    if taps is not None:
+        taps["emit_two_key"] = args
+    key, payload = (emit_two_key_torch if plain else emit_two_key)(*args)
+    stamp("emit")
+    return key.reshape(-1), payload.reshape(-1)
 
 
 def _expand_emit_packed(
@@ -104,37 +107,18 @@ def sort_segments(packed, payload, slot_bits: int, tx_bits: int):
     return unpack_packed_keys(packed, payload[order], slot_bits, tx_bits)
 
 
-def _emit_two_key(col, j, v_live, k_seg: int, rows: int, tiles_x: int, row_lo):
-    """_emit_core + the two-key form (`forma_tpu/ops/rasterize.py:216-226`):
-    (key_hi, key_lo, payload) int64 [k_seg, V] of u32 values, key_hi =
-    (tile_y + 1) << TX_BITS | (tile_x + 1) and key_lo the layer slot;
-    `SENTINEL` and 0 where invalid."""
-    tile_x, tile_y, slot, payload, valid = _emit_core(
-        col, j, v_live, k_seg, rows, tiles_x, row_lo
-    )
-    key_hi = ((tile_y.long() + 1) << TX_BITS) | (tile_x.long() + 1)
-    key_hi = torch.where(valid, key_hi, torch.full_like(key_hi, SENTINEL))
-    key_lo = torch.where(valid, slot, torch.zeros_like(slot))
-    return key_hi, key_lo, payload
-
-
-def sort_two_key(key_hi, key_lo, payload):
-    """One unstable sort of (key_hi, key_lo) as one int64 key (`key_hi <<
-    SLOT_FIELD_BITS | key_lo`, `TWO_KEY_SENTINEL` where key_hi is the
-    sentinel), the payload gathered along; returns the sorted (key_hi,
-    key_lo, payload) int64 of u32 values, `SENTINEL` and 0 where invalid.
-    The JAX package sorts the pair as two keys (`jax.lax.sort(...,
-    num_keys=2)`); equal pairs are summed by the grid accumulation, so
-    their payloads' order is irrelevant."""
-    key = torch.where(
-        key_hi != SENTINEL, (key_hi << SLOT_FIELD_BITS) | key_lo,
-        torch.full_like(key_hi, TWO_KEY_SENTINEL),
-    )
+def sort_two_key(key, payload):
+    """One unstable sort of the two-key emit's combined int64 keys, the
+    int32 payload words gathered along; returns the sorted (key_hi,
+    key_lo, payload) int64 of u32 values, `SENTINEL` and 0 where the key
+    is `TWO_KEY_SENTINEL`.  The JAX package sorts the pair as two keys
+    (`jax.lax.sort(..., num_keys=2)`); equal pairs are summed by the grid
+    accumulation, so their payloads' order is irrelevant."""
     key, order = torch.sort(key, stable=False)
     invalid = key == TWO_KEY_SENTINEL
     key_hi = (key >> SLOT_FIELD_BITS).masked_fill_(invalid, SENTINEL)
     key_lo = (key & consts.LAYER_LIMIT).masked_fill_(invalid, 0)
-    return key_hi, key_lo, payload[order]
+    return key_hi, key_lo, payload[order].long() & MASK32
 
 
 def rasterize_sort(
@@ -147,23 +131,21 @@ def rasterize_sort(
     values.
 
     `slot_bits > 0`: the packed key from K4, then `sort_segments`.
-    `slot_bits == 0`: the two-key route, K1 and the emit in PyTorch (K4
-    packs only the one-word key), then `sort_two_key`, each stamped as its
-    stage (`expand`, `emit`, `key_sort`); the packed key stamps nothing
-    here.  Both sorts are unstable.  `plain` runs each kernel's plain
+    `slot_bits == 0`: the two-key route, K1 and the two-key emit kernel
+    (K4 packs only the one-word key), then `sort_two_key`, each stamped as
+    its stage (`expand`, `emit`, `key_sort`); the packed key stamps
+    nothing here.  Both sorts are unstable.  `plain` runs each kernel's plain
     PyTorch version on any device; `taps` (a dict) receives each kernel's
     inputs."""
     if taps is not None:
         taps["rasterize_sort"] = (params, slots, lengths, vline_ends, v_total, v_cap,
                                   k_seg, rows, tiles_x, row_lo, slot_bits)
     if slot_bits <= 0:
-        col, j, v_live = _expand(params, vline_ends, v_total, v_cap, plain, taps)
-        stamp("expand")
-        key_hi, key_lo, payload = _emit_two_key(
-            col, j, v_live, k_seg, rows, tiles_x, row_lo
+        key, payload = _expand_emit_two_key(
+            params, vline_ends, v_total, v_cap, k_seg, rows, tiles_x, row_lo,
+            plain, taps, stamp,
         )
-        stamp("emit")
-        out = sort_two_key(key_hi.reshape(-1), key_lo.reshape(-1), payload.reshape(-1))
+        out = sort_two_key(key, payload)
         stamp("key_sort")
         return out
     tx_bits = max((tiles_x + 1).bit_length(), 1)

@@ -23,6 +23,15 @@ sentinel `PACKED_SENTINEL` = 0x7FFFFFFF, which sorts after every valid key
 (the u32 sentinel 0xFFFFFFFF would read as -1 and sort first), and the
 zero payload.  A payload keeps its 32 bits: `_u32.wrap_i32` stores it,
 `& MASK32` reads it back.
+
+The two-key emit (`emit_two_key`; CUDA kernel `emit_two_key_kernel` in the
+same source) runs the same per-segment math on K1's expanded virtual
+lines where the key is too wide to pack (`pipeline.slot_bits_for` gives
+0): each segment as the two-key sort's combined int64 key
+
+    key = ((tile_y + 1) << TX_BITS | (tile_x + 1)) << SLOT_FIELD_BITS | slot
+
+(`TWO_KEY_SENTINEL` where invalid) with the same payload word.
 """
 
 from __future__ import annotations
@@ -40,6 +49,15 @@ from .line_setup import (
 
 ZERO_PAYLOAD = (1024 << 6) | 16  # area 0, cover 0
 PACKED_SENTINEL = 0x7FFFFFFF  # invalid slot's key in the int32 words
+TX_BITS = 13  # tile_x + 1 in the canonical key_hi (max 4096 tiles of 16)
+# The two-key sort's combined int64 key is key_hi << SLOT_FIELD_BITS |
+# slot, key_hi = (tile_y + 1) << TX_BITS | (tile_x + 1): a valid key_hi is
+# below 2^25 ((2049 << 13) | 4097 at the format's limits) and a slot below
+# 2^21, so it fits 46 bits, and the sentinel is int64's maximum, above
+# every valid key (the u32 sentinel shifted left by 21 would not fit, and
+# by 32 would sort first).
+SLOT_FIELD_BITS = consts.LAYER_LIMIT.bit_length()  # 21
+TWO_KEY_SENTINEL = (1 << 63) - 1
 
 
 def check_key_budget(rows: int, tiles_x: int, slot_bits: int, tx_bits: int) -> None:
@@ -226,3 +244,50 @@ def rasterize_blocks_torch(
         lambda i: pt[i], j, v_live, k_seg, rows, tiles_x, row_lo,
         slot_bits, tx_bits,
     )
+
+
+def emit_two_key(pt, j, v_total, k_seg: int, rows: int, tiles_x: int, row_lo):
+    """Returns (key int64, payload int32) [k_seg, v_cap]: each pixel
+    segment of K1's virtual lines as the two-key sort's combined key
+    (`TWO_KEY_SENTINEL` where invalid) and its u32 payload word
+    (`ZERO_PAYLOAD` where invalid).
+
+    pt f32 [16, v_cap] and j int32 [v_cap] are K1's output
+    (`expand_kernel.expand_params`); v_total an int64 0-d tensor on the
+    same device, the live vline count (no host sync); vlines v >= v_total
+    emit only sentinels.  `row_lo` is an int or an int32 0-d tensor on
+    the device, as in `rasterize_blocks`.  CUDA tensors launch
+    `forma_emit_two_key`; CPU tensors take `emit_two_key_torch`."""
+    if not pt.is_cuda:
+        return emit_two_key_torch(pt, j, v_total, k_seg, rows, tiles_x, row_lo)
+    v_cap = pt.shape[-1]
+    if not (0 < v_cap < (1 << 24)) or not (0 < k_seg <= 64):
+        raise ValueError(f"emit_two_key: v_cap={v_cap}, k_seg={k_seg} out of range")
+    _build.check(pt, "pt", torch.float32, (N_PARAMS, v_cap))
+    _build.check_aligned(pt, "pt", 4)  # loaded as 32-bit words
+    _build.check(j, "j", torch.int32, (v_cap,))
+    _build.check_aligned(j, "j", 4)
+    _build.check(v_total, "v_total", torch.int64, ())
+    row_lo = _build.row_lo_tensor(row_lo, pt.device)
+    key = torch.empty((k_seg, v_cap), dtype=torch.int64, device=pt.device)
+    payload = torch.empty((k_seg, v_cap), dtype=torch.int32, device=pt.device)
+    _build.launch(
+        "forma_emit_two_key", "emit_two_key",
+        pt.data_ptr(), j.data_ptr(), v_total.data_ptr(), v_cap, k_seg, rows, tiles_x,
+        row_lo.data_ptr(), key.data_ptr(), payload.data_ptr(),
+    )
+    return key, payload
+
+
+def emit_two_key_torch(pt, j, v_total, k_seg: int, rows: int, tiles_x: int, row_lo):
+    """Plain PyTorch version of `emit_two_key`: `_emit_core` in the
+    two-key form (`forma_tpu/ops/rasterize.py:216-226`), the pair (key_hi,
+    slot) combined into the int64 key the sort takes."""
+    v_live = torch.arange(pt.shape[-1], device=pt.device) < v_total
+    tile_x, tile_y, slot, payload, valid = _emit_core(
+        lambda i: pt[i], j, v_live, k_seg, rows, tiles_x, row_lo
+    )
+    key_hi = ((tile_y.long() + 1) << TX_BITS) | (tile_x.long() + 1)
+    key = torch.where(valid, (key_hi << SLOT_FIELD_BITS) | slot,
+                      torch.full_like(key_hi, TWO_KEY_SENTINEL))
+    return key, wrap_i32(payload)

@@ -26,8 +26,8 @@ from a texture atlas; or `--scene svg`, paris-30k written as SVG text by
 4. `Renderer.profile_frame`'s `Timings`.
 
 Where the frame's [row | slot | tx] key passes 31 bits (7680x4320, for
-example), the frame takes the two-key route (K1, the emit in PyTorch, the
-int64 two-key sort) in place of K4.
+example), the frame takes the two-key route (K1, the two-key emit kernel,
+the int64 two-key sort) in place of K4.
 
 Needs a CUDA card; it does not fall back to the CPU.
 """

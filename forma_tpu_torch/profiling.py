@@ -36,7 +36,7 @@ STAGES = (
      0, "rasterize_sort"),
     (rasterize, "rasterize_blocks", "K4 rasterize_blocks (fused expand + emit)", 1, None),
     (rasterize, "expand_params", "K1 expand_params", 1, None),
-    (rasterize, "_emit_two_key", "ff64 two-key emit in PyTorch", 1, None),
+    (rasterize, "emit_two_key", "two-key emit kernel (ff64 emit of int64 keys)", 1, None),
     (rasterize, "sort_two_key", "two-key int64 sort", 1, None),
     (_pipe._runs, "extract_runs", "extract_runs", 0, "runs"),
     (_pipe._runs, "run_data", "run_data", 0, "runs"),

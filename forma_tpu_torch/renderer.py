@@ -954,11 +954,11 @@ class Renderer:
         Every fill, blend mode and clip, on either sort key: where [row |
         slot | tx] fits 31 bits (`pipeline.slot_bits_for`), the packed key
         from the fused expand + emit kernel (K4); otherwise the two-key
-        route, which takes the expand kernel (K1) and the emit in PyTorch
-        (K4 packs only the one-word key), then the grid and fold kernels as
-        every frame does.  On a CUDA device a
-        kernel that fails to build or launch raises; nothing falls back to
-        a plain version.  There the frame is a replay of its key's CUDA
+        route, which takes the expand kernel (K1) and the two-key emit
+        kernel (K4 packs only the one-word key), then the grid and fold
+        kernels as every frame does.  On a CUDA device a kernel that fails
+        to build or launch raises; nothing falls back to a plain version.
+        There the frame is a replay of its key's CUDA
         graph (the regrow loop replays, reads the diagnostics, grows and
         captures the new key), unless `plain` or `taps` asks for the eager
         frame."""

@@ -41,11 +41,11 @@ place.  The stages (`STAGES`) are `profiling.Timings`' and, on a
 damage-cached frame, `damage`, the changed tiles' compaction after the
 pack.  A frame on the two-key route (`pipeline.slot_bits_for` gives 0)
 stamps four more in place of `rasterize_sort`: `expand` (K1, or its plain
-version), `emit` (`rasterize._emit_two_key`), `key_sort`
-(`rasterize.sort_two_key` and its unpack) and `carry_sort`
-(`runs.run_data`'s re-sort of the runs into carry-chain order, out of
-`runs`, which that frame ends twice: before the re-sort and after the
-carry chains).  On the CPU every op has finished when it returns, so a
+version), `emit` (the two-key emit kernel, `rasterize_kernel.emit_two_key`,
+or its plain version), `key_sort` (`rasterize.sort_two_key`: the int64
+sort, the payload gather, the unpack) and `carry_sort` (`runs.run_data`'s
+re-sort of the runs into carry-chain order, out of `runs`, which that
+frame ends twice: before the re-sort and after the carry chains).  On the CPU every op has finished when it returns, so a
 stamp takes the host's clock into the CPU's accumulator, eager or not.
 The sharded frames and the `plain` frames stamp nothing.
 """

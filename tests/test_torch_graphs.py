@@ -500,3 +500,20 @@ def test_kernel_nodes_read_from_the_dot_print():
     count nothing."""
     assert kernel_nodes(DOT_SAMPLE) == {"fold": 1, "rasterize": 1, "grid": 1, "scan": 1}
     assert kernel_nodes("") == {}
+
+
+def test_kernel_nodes_count_the_two_key_emit():
+    """A two-key frame's kernels in the DOT print's node form (the two-key
+    emit's name in the form the card's compiler mangles an anonymous
+    namespace's kernel): K1 and the two-key emit each count once under
+    their own stems, and the emit is no K4 node."""
+    dot = "".join(
+        f'"graph_1_node_{i}"[style="bold" shape="record" label="{{KERNEL\n'
+        f"| {{ID | {i} (topoId: {i}) | {name}\\<\\<\\<100,256,0\\>\\>\\>}}\n}}\"];\n\n"
+        for i, name in enumerate((
+            "_ZN42_GLOBAL__N__5c1d2e3f_9_expand_cu_1a2b3c4d13expand_kernelEPKjPKlllPjPi",
+            "_ZN45_GLOBAL__N__7121a0e2_12_rasterize_cu_6883330419emit_two_key_kernelEPKjPKiPKllii"
+            "iS6_PlPj",
+            "_ZN39_GLOBAL__N__dad47804_7_grid_cu_ce326b3211grid_kernelEPKiS1_S1_S1_PKlS3_llPiS4_Pl",
+        )))
+    assert kernel_nodes(dot) == {"expand": 1, "emit_two_key": 1, "grid": 1}

@@ -261,6 +261,7 @@ def test_no_kernel_launches_on_cpu():
     dict(all_scenes())["tests__texture__cpu"](comp)
     Renderer("cpu").render(composition_from_jax(comp), 64, 64, CLEAR)
     assert set(_build.LAUNCHES) == {
-        "expand", "rasterize", "grid", "scan", "fold", "fold_styled", "fold_tex", "fold_clip",
-        "texture_probe", "fold_ablate", "unit_stream", "seg_loop", "grid_scatter"}
+        "expand", "rasterize", "emit_two_key", "grid", "scan", "fold", "fold_styled",
+        "fold_tex", "fold_clip", "texture_probe", "fold_ablate", "unit_stream", "seg_loop",
+        "grid_scatter"}
     assert not any(_build.LAUNCHES.values())

@@ -4,8 +4,10 @@ package: frames whose [row | slot | tx] key passes 31 bits
 
 - `rasterize_sort(slot_bits=0)`: bit-equal to JAX's sorted stream after a
   canonical lexsort (both sorts are unstable), and the same segment set
-  as the port's packed path; the combined int64 key keeps the widest
-  valid keys and sorts the sentinel last;
+  as the port's packed path; the plain two-key emit's combined int64 key
+  and payload word, sorted, equal to the old three-array path and to
+  JAX's; the combined key keeps the widest valid keys and sorts the
+  sentinel last;
 - `runs.run_data(presorted=False)`: every returned array bit-equal to
   JAX's on valid rows;
 - K3's plain fold with `src_u != src2_u` against JAX's interpret-mode
@@ -38,6 +40,8 @@ from forma_tpu.ops.line_setup import line_setup as jax_line_setup
 from forma_tpu_torch import Renderer
 from forma_tpu_torch.convert import composition_from_jax
 from forma_tpu_torch.ops import paint, pipeline, rasterize, runs
+from forma_tpu_torch.ops import rasterize_kernel as rk
+from forma_tpu_torch.ops.expand_kernel import expand_params_torch
 from forma_tpu_torch.ops._u32 import SENTINEL
 from forma_tpu_torch.ops.rasterize import TX_BITS
 
@@ -105,8 +109,11 @@ def test_two_key_sort_matches_jax_and_packed():
 
 def test_two_key_sort_keeps_widest_keys_and_sorts_sentinel_last():
     """key_lo = 2^21 - 1 and the largest key_hi at the format's limits
-    ((2049 << 13) | 4097) survive the combined int64 key; the u32
-    sentinel, whose shift would set bit 63, sorts after every valid key."""
+    ((2049 << 13) | 4097) survive the combined int64 key the emit writes;
+    `TWO_KEY_SENTINEL`, where a u32 sentinel shifted by 21 would set bit
+    63, sorts after every valid key and splits into `SENTINEL` and 0; the
+    payload words (int32, any of their 32 bits set) widen back to their
+    u32 values."""
     rng = np.random.default_rng(3)
     n = 4000
     hi_max = (2049 << TX_BITS) | 4097
@@ -117,19 +124,54 @@ def test_two_key_sort_keeps_widest_keys_and_sorts_sentinel_last():
     invalid = rng.random(n) < 0.2
     invalid[:6] = False
     key_hi[invalid] = SENTINEL
-    key_lo[invalid] = rng.integers(0, 1 << 21, invalid.sum())  # ignored
+    key_lo[invalid] = 0
     payload = rng.integers(0, 1 << 32, n)
-    got = [x.numpy() for x in rasterize.sort_two_key(
-        *(torch.from_numpy(a.astype(np.int64)) for a in (key_hi, key_lo, payload)))]
+    key = np.where(invalid, rasterize.TWO_KEY_SENTINEL,
+                   (key_hi << rasterize.SLOT_FIELD_BITS) | key_lo)
+    words = torch.from_numpy(payload.astype(np.uint32).view(np.int32))
+    got = [x.numpy() for x in rasterize.sort_two_key(torch.from_numpy(key), words)]
+    assert all(x.dtype == np.int64 for x in got)
     nv = int((~invalid).sum())
     assert (got[0][nv:] == SENTINEL).all() and (got[1][nv:] == 0).all()
-    key_lo = np.where(invalid, 0, key_lo)
     want = _canon((key_hi, key_lo, payload))
     np.testing.assert_array_equal(_canon(got), want)
     assert (got[0][:nv] < SENTINEL).all()
     assert got[0][nv - 1] == hi_max and got[1][nv - 1] == LAYER_MASK
     pair = got[0][:nv] * (1 << 21) + got[1][:nv]
     assert (np.diff(pair) >= 0).all()
+
+
+@pytest.mark.parametrize("row_lo, rows", [(0, 8), (2, 5)])
+def test_plain_emit_sorted_matches_the_old_path_and_jax(row_lo, rows):
+    """The plain two-key emit's combined key and payload word, sorted by
+    `sort_two_key`: the (key_hi, key_lo, payload) stream of the old path
+    (`_emit_core`'s fields as three int64 arrays, sorted as one key) and
+    JAX's `rasterize_sort(..., slot_bits=0)`, after a canonical lexsort
+    (both sorts are unstable); at row_lo 2 segments above and below the
+    rows drop."""
+    params, slots, lengths, ends = _channels_lines()
+    v_total = int(ends[-1])
+    v_cap = v_total + 40
+    pt, j = expand_params_torch(torch.from_numpy(params),
+                                torch.from_numpy(ends.astype(np.int64)), v_cap)
+    args = (pt, j, torch.tensor(v_total), 8, rows, 8, row_lo)
+    key, payload = rk.emit_two_key_torch(*args)
+    got = rasterize.sort_two_key(key.reshape(-1), payload.reshape(-1))
+
+    v_live = torch.arange(v_cap) < v_total
+    tile_x, tile_y, slot, old_pay, valid = rk._emit_core(
+        lambda i: pt[i], j, v_live, 8, rows, 8, row_lo)
+    old_hi = torch.where(valid, ((tile_y.long() + 1) << TX_BITS) | (tile_x.long() + 1),
+                         SENTINEL).reshape(-1)
+    old_lo = torch.where(valid, slot, 0).reshape(-1)
+    np.testing.assert_array_equal(_canon(got), _canon((old_hi, old_lo, old_pay.reshape(-1))))
+    assert 300 < int(valid.sum()) < int(lengths.sum())
+
+    with jax.disable_jit():
+        want = jras.rasterize_sort(
+            *map(jnp.asarray, (params, slots, lengths, ends)), jnp.uint32(v_total),
+            v_cap, 8, rows, 8, row_lo, slot_bits=0)
+    np.testing.assert_array_equal(_canon(got), _canon(want))
 
 
 @pytest.mark.parametrize("n_slots, rows, tiles_x, want", [
